@@ -1,12 +1,15 @@
-"""The MoDL CUDA kernel on the card: against its plain version, its input
-checks, its launch count and its missing backward. Needs a CUDA card and
-nvcc; skipped elsewhere. On a machine without jax, run it as
+"""The MoDL CUDA kernels on the card: forward and backward against their
+plain versions, their input checks, their launch counts, and the gradient's
+layout. Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
+jax, run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: per pixel |kernel - plain| <= 2e-4 + 1e-5 |plain|, as in
-chip_smoke.py (same float32 formula and libdevice functions, sums in another
-order).
+Tolerances, as in chip_smoke.py (same float32 formulas and libdevice
+functions, sums in another order): forward per pixel |kernel - plain| <=
+2e-4 + 1e-5 |plain|; backward per element <= 2e-5 + 2e-4 |plain| for a
+float32 gradient and 2e-5 + 8e-3 |plain| for a bf16 one (one bf16 ulp is
+2^-8 of the value).
 """
 import numpy as np
 import pytest
@@ -70,9 +73,72 @@ def test_kernel_refuses_what_it_does_not_take(cuda, bad):
         mdl_kernel.mdl_log_prob(x, p)
 
 
-def test_backward_through_the_kernel_raises(cuda):
+_BWD_RTOL = {torch.float32: 2e-4, torch.bfloat16: 8e-3}
+
+
+def _nchw(p):
+    return p.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
+
+
+def _cotangent(device, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("n_mix", [1, 2, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nchw", [False, True])
+def test_backward_kernel_matches_plain_version(cuda, n_mix, dtype, nchw):
+    x, p = _inputs(cuda, n_mix=n_mix, dtype=dtype)
+    if nchw:
+        p = _nchw(p)
+    g = _cotangent(cuda, (3, 2, 5, 7, 1), n_mix)
+    before = mdl_kernel.backward_launches
+    got = mdl_kernel.mdl_backward(x, p, g)
+    assert mdl_kernel.backward_launches == before + 1
+    want = mdl_kernel.mdl_backward_plain(x, p, g)
+    assert got.dtype == want.dtype == dtype and got.shape == p.shape
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradient_keeps_the_parameters_strides_and_dtype(cuda, dtype):
+    """Through autograd, as the model differentiates it: an NCHW-strided
+    parameter view gets an NCHW-strided gradient of its dtype, from a
+    cotangent the sum's backward expands with zero strides."""
+    x, p = _inputs(cuda, dtype=dtype)
+    p = _nchw(p).requires_grad_(True)
+    mdl_kernel.mdl_log_prob(x, p).sum(dim=(-1, -2, -3)).sum().backward()
+    assert p.grad.dtype == dtype and p.grad.stride() == p.stride()
+    want = mdl_kernel.mdl_backward_plain(x, p.detach(), torch.ones(3, 2, 5, 7, 1, device=cuda))
+    err = (p.grad.float() - want.float()).abs()
+    assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+
+
+def test_images_gradient_goes_through_the_plain_version(cuda):
     x, p = _inputs(cuda)
-    p.requires_grad_(True)
-    out = mdl_kernel.mdl_log_prob(x, p).sum()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.backward()
+    x.requires_grad_(True)
+    g = _cotangent(cuda, (3, 2, 5, 7, 1))
+    (dx,) = torch.autograd.grad(mdl_kernel.mdl_log_prob(x, p), x, g)
+    x_plain = x.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(mixture_log_prob(x_plain, p), x_plain, g)
+    torch.testing.assert_close(dx, want)
+
+
+@pytest.mark.parametrize("bad", ["g_dtype", "g_shape", "g_device", "p_dtype", "channels"])
+def test_backward_refuses_what_it_does_not_take(cuda, bad):
+    x, p = _inputs(cuda)
+    g = _cotangent(cuda, (3, 2, 5, 7, 1))
+    if bad == "g_dtype":
+        g = g.double()
+    elif bad == "g_shape":
+        g = g[:, :, :4]
+    elif bad == "g_device":
+        g = g.cpu()
+    elif bad == "p_dtype":
+        p = p.half()
+    else:
+        p = p[..., :45]
+    with pytest.raises((TypeError, ValueError)):
+        mdl_kernel.mdl_backward(x, p, g)

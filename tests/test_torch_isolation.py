@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax, flax nor vae_mdl_tpu, and
-its CUDA-only paths refuse CPU tensors instead of falling back."""
+its CUDA-only paths (the forward and backward kernels) refuse CPU tensors
+instead of falling back."""
 import dataclasses
 import os
 import subprocess
@@ -72,13 +73,25 @@ def test_auto_resolves_by_the_operand_device():
     assert resolve_use_pallas(None, "mdl", torch.empty(1, device="meta")) is False
 
 
-def test_kernel_backward_raises_and_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mdl_kernel._MDLLogProb.backward(None, torch.zeros(1))
+def test_backward_kernel_refuses_cpu_tensors():
+    x, p = _inputs()
+    g = torch.ones(p.shape[:-1] + (1,))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        mdl_kernel.mdl_backward_cuda(x, p, g)
+
+
+def test_backward_takes_the_plain_version_for_cpu_tensors():
+    x, p = _inputs()
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(p.shape[:-1] + (1,))
+                         .astype(np.float32))
+    before = mdl_kernel.backward_launches
+    got = mdl_kernel.mdl_backward(x, p, g)
+    assert mdl_kernel.backward_launches == before
+    torch.testing.assert_close(got, mdl_kernel.mdl_backward_plain(x, p, g), rtol=0, atol=0)
 
 
 def test_nothing_is_built_at_import():
     """Importing the kernel module compiles and loads nothing."""
-    assert mdl_kernel._forward_fn.cache_info().currsize == 0
+    assert mdl_kernel._library.cache_info().currsize == 0
     assert mdl_kernel.library_path().parent == mdl_kernel.BUILD_DIR
     assert mdl_kernel.SOURCE.is_file()

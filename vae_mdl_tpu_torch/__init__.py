@@ -5,7 +5,8 @@ neither it nor jax. Module paths mirror the JAX package's, and public
 functions keep its layouts: images ``[B, H, W, C]``, MoDL parameters
 ``[k, B, H, W, 10 * n_mix]``, log-weights ``[k, B]``.
 
-Ported so far: the model05 5000-importance-sample evaluation path and the
-MoDL log-prob forward kernel (``ops/cuda/mdl_kernel.py``,
-``csrc/mdl_log_prob.cu``).
+Ported so far: the model05 5000-importance-sample evaluation path, the
+model05 train step (``train/``, ``models/objective.py``,
+``data/preprocess.py``) and the MoDL log-prob forward and backward kernels
+(``ops/cuda/mdl_kernel.py``, ``csrc/mdl_log_prob.cu``).
 """

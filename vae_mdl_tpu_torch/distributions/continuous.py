@@ -20,8 +20,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``'s form, max(x, 0) + log1p(exp(-|x|)).
     ``torch.nn.functional.softplus`` linearises above a threshold and is
-    not the same function."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    not the same function. ``torch.maximum`` splits the gradient at the tie
+    x = 0 as ``jnp.maximum`` does (0.5 each), so the gradient there is 0.5,
+    as ``jax.nn.softplus``'s; ``clamp_min`` would pass 1."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def _sample_shape(sample_shape, *tensors) -> Tuple[int, ...]:

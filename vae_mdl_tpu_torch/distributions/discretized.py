@@ -40,7 +40,8 @@ def discretized_logistic_log_prob(
     interval_stop = (centered + dx) * inv_std
 
     prob = torch.sigmoid(interval_stop) - torch.sigmoid(interval_start)
-    prob = torch.clamp_min(prob, 1e-12)
+    # torch.maximum: half the gradient at a tie, as jnp.maximum
+    prob = torch.maximum(prob, prob.new_full((), 1e-12))
 
     # edge bins: log CDF(stop) on the left, log(1 - CDF(start)) on the right
     left_edge = interval_stop - softplus(interval_stop)

@@ -33,7 +33,9 @@ def split_mixture_params(parameters: torch.Tensor):
     """Split ``[..., n_mix*10]`` into (loc, logscale, coeffs, mix_logits).
 
     loc/logscale/coeffs: ``[..., 3, n_mix]``; mix_logits: ``[..., n_mix]``.
-    Logscales are clamped at -7 and coeffs tanh-squashed.
+    Logscales are clamped at -7 and coeffs tanh-squashed. The clamp is
+    ``torch.maximum``, which passes half the gradient at a tie, as
+    ``jnp.maximum`` does.
     """
     if parameters.shape[-1] % 10 != 0:
         raise ValueError(
@@ -44,7 +46,7 @@ def split_mixture_params(parameters: torch.Tensor):
     mix_logits = parameters[..., :n_mix]
     rest = parameters[..., n_mix:].reshape(parameters.shape[:-1] + (3, 3 * n_mix))
     loc, logscale, coeffs = torch.split(rest, n_mix, dim=-1)
-    logscale = torch.clamp_min(logscale, -7.0)
+    logscale = torch.maximum(logscale, logscale.new_full((), -7.0))
     coeffs = torch.tanh(coeffs)
     return loc, logscale, coeffs, mix_logits
 

@@ -1,7 +1,8 @@
-"""The IWAE objective for one stochastic layer.
+"""The IWAE and ELBO objectives for one stochastic layer.
 
-Port of ``effective_sample_size``, ``_reduce``, ``_bits_per_dim`` and
-``iwae_loss`` from ``vae_mdl_tpu/models/losses.py``. Log-probs are reduced
+Port of ``effective_sample_size``, ``_reduce``, ``_bits_per_dim``,
+``iwae_loss`` and ``elbo_loss`` from ``vae_mdl_tpu/models/losses.py``; the
+two- and L-layer bounds wait for the hierarchical models. Log-probs are reduced
 over each distribution's event axes; the only cross-sample op is the
 logmeanexp over the leading importance-sample axis.
 """
@@ -41,8 +42,8 @@ def iwae_loss(x, z, pz, qzx, pxz, beta: float = 1.0) -> Tuple[torch.Tensor, Metr
     """Importance-weighted bound for one stochastic layer.
 
     ``z``: latent samples ``[k, B, ...]``; ``pz``/``qzx``/``pxz``:
-    distributions with ``log_prob`` and ``event_axes``. Forward only: the
-    backward of the CUDA likelihood kernel is not ported yet.
+    distributions with ``log_prob`` and ``event_axes``. Differentiable,
+    through the CUDA likelihood kernels as through the plain version.
     """
     lpz = _reduce(pz, z)
     lqzx = _reduce(qzx, z)
@@ -64,3 +65,13 @@ def iwae_loss(x, z, pz, qzx, pxz, beta: float = 1.0) -> Tuple[torch.Tensor, Metr
         "kl": kl,
         "ess": effective_sample_size(log_w),
     }
+
+
+def elbo_loss(x, z, pz, qzx, pxz) -> Tuple[torch.Tensor, Metrics]:
+    """Plain ELBO: the mean over samples instead of the logmeanexp."""
+    lpz = _reduce(pz, z)
+    lqzx = _reduce(qzx, z)
+    lpxz = _reduce(pxz, x)
+    log_w = lpxz + (lpz - lqzx)
+    elbo = torch.mean(torch.mean(log_w, dim=0), dim=-1)
+    return -elbo, {"loss": -elbo, "lpxz": lpxz}

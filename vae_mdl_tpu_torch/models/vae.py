@@ -1,8 +1,8 @@
 """The VAE/IWAE model family, one stochastic layer with conv encoder/decoder.
 
-Port of ``VAE``, ``prior_for`` and ``build_model`` from
-``vae_mdl_tpu/models/vae.py`` for the model05 path: encoder -> q(z|x), k
-importance samples as a leading axis, decoder -> p(x|z) with the MoDL head.
+Port of ``VAE`` (with ``posterior_at``), ``prior_for`` and ``build_model``
+from ``vae_mdl_tpu/models/vae.py`` for the model05 path: encoder -> q(z|x),
+k importance samples as a leading axis, decoder -> p(x|z) with the MoDL head.
 
 Randomness comes from an explicit ``torch.Generator``, or as injected
 standard-normal noise ``eps`` ``[k, B, n_latent]``. Unlike the JAX
@@ -68,6 +68,13 @@ class VAE(nn.Module):
         q1 = self.encoder(x)
         z1 = q1.sample(generator, (n_samples,), noise=eps)
         return (DistributionTuple(q1, z1, axes=_LATENT_AXES),)
+
+    def posterior_at(self, x: torch.Tensor,
+                     zs: Tuple[torch.Tensor, ...]) -> Tuple[DistributionTuple, ...]:
+        """q(z | x) evaluated at given latents ``zs[0]``, without sampling:
+        the DReG estimator evaluates it under detached weights at live
+        latents (``models/objective.py``)."""
+        return (DistributionTuple(self.encoder(x), zs[0], axes=_LATENT_AXES),)
 
     def decode(self, z1: torch.Tensor) -> DistributionTuple:
         """p(x | z), no sample attached."""

@@ -1,21 +1,32 @@
-"""Hand-written CUDA kernel: mixture-of-discretized-logistics log-prob forward.
+"""Hand-written CUDA kernels: mixture-of-discretized-logistics log-prob,
+forward and backward.
 
-Port of the Pallas forward kernels in ``vae_mdl_tpu/ops/pallas/mdl_kernel.py``
-(``_forward``, ``_forward_bl``, ``_forward_bl_split``, ``_forward_bl_kgrid``):
-one kernel, ``csrc/mdl_log_prob.cu``, that reads the head's output where it
-lies. The source's header says what bounds it and how it is laid out.
+Port of the Pallas kernels in ``vae_mdl_tpu/ops/pallas/mdl_kernel.py``: the
+forwards ``_forward``, ``_forward_bl``, ``_forward_bl_split`` and
+``_forward_bl_kgrid`` become one kernel, and their backwards
+``_backward_params``, ``_backward_params_bl``, ``_backward_params_bl_split``
+and ``_backward_params_bl_kgrid`` another, both in ``csrc/mdl_log_prob.cu``,
+reading the head's output where it lies. The source's header says what
+bounds them and how they are laid out.
 
 - ``mdl_log_prob(x01, parameters)`` is the drop-in for
   ``distributions.mixture.mixture_log_prob``: CPU tensors take that plain
-  version, CUDA tensors launch the kernel (``mdl_log_prob_cuda``), which
-  raises on anything it does not take. There is no fallback between them.
+  version, CUDA tensors launch the forward kernel (``mdl_log_prob_cuda``),
+  which raises on anything it does not take. There is no fallback between
+  them. Differentiating ``mdl_log_prob_cuda`` launches the backward kernel
+  for the parameters' gradient; the images' gradient, which no training
+  path asks for, goes through the plain version's autograd.
+- ``mdl_backward_plain(x01, parameters, g)`` is the backward kernel's plain
+  version: the analytic gradient of the Pallas backward (``_dl_grads``,
+  ``_bwd_math``) in plain PyTorch, with its tie rules. ``mdl_backward``
+  takes it for CPU tensors and launches the kernel (``mdl_backward_cuda``)
+  for CUDA tensors.
 - The library is built with ``nvcc`` for ``sm_90a`` at first use into
   ``vae_mdl_tpu_torch/_build/`` (keyed by a hash of the source and flags) and
   loaded with ``ctypes``; nothing is built or loaded at import.
-- ``launches`` counts kernel launches; callers reset it to 0 and read it to
-  show that a run went through the kernel.
-- The backward kernel is not ported yet: differentiating through the kernel
-  raises.
+- ``launches`` and ``backward_launches`` count the two kernels' launches;
+  callers reset them to 0 and read them to show that a run went through the
+  kernels.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from pathlib import Path
 
 import torch
 
+from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
 
 _PACKAGE = Path(__file__).resolve().parents[2]
@@ -41,9 +53,11 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 MAX_MIX = 10
+_HALF_BIN = 1.0 / 255.0  # half of the 2/255 bin on [-1, 1]
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counter was last set to 0: forward, backward
 launches = 0
+backward_launches = 0
 
 
 def _nvcc() -> str:
@@ -54,7 +68,7 @@ def _nvcc() -> str:
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
         raise RuntimeError(
-            "nvcc not found on PATH or under CUDA_HOME; the MoDL kernel is "
+            "nvcc not found on PATH or under CUDA_HOME; the MoDL kernels are "
             "built from csrc/mdl_log_prob.cu with the CUDA toolkit")
     return path
 
@@ -66,7 +80,7 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernel library unless this exact build exists; returns
+    """Compile the kernels' library unless this exact build exists; returns
     its path. The compiler's register/spill report goes beside it as
     ``.log``."""
     lib = library_path()
@@ -84,12 +98,14 @@ def build() -> Path:
 
 
 @functools.cache
-def _forward_fn():
-    fn = ctypes.CDLL(str(build())).mdl_log_prob_forward
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_int64] * 13 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mdl_log_prob_forward.argtypes = [ptr] * 3 + [i32] * 2 + [i64] * 13 + [ptr]
+    lib.mdl_log_prob_forward.restype = i32
+    lib.mdl_log_prob_backward.argtypes = [ptr] * 4 + [i32] * 2 + [i64] * 22 + [ptr]
+    lib.mdl_log_prob_backward.restype = i32
+    return lib
 
 
 def _check(x01: torch.Tensor, parameters: torch.Tensor) -> None:
@@ -123,7 +139,7 @@ def _launch(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, b, h, w), device=parameters.device, dtype=torch.float32)
     if out.numel():
         with torch.cuda.device(parameters.device):
-            err = _forward_fn()(
+            err = _library().mdl_log_prob_forward(
                 x01.data_ptr(), parameters.data_ptr(), out.data_ptr(),
                 int(parameters.dtype == torch.bfloat16), c // 10,
                 k, b, h, w, *x01.stride(), *parameters.stride(),
@@ -134,23 +150,170 @@ def _launch(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
     return out.unsqueeze(-1)
 
 
+def mdl_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel: d(sum g * mdl_log_prob(x01, parameters)) /
+    d parameters. ``g`` ``[k, B, H, W, 1]`` float32, any strides (an
+    expanded cotangent is read in place). The gradient has the parameters'
+    dtype and, as ``torch.empty_like`` gives it, their strides: the head
+    conv's NCHW output gets an NCHW gradient."""
+    global backward_launches
+    _check(x01, parameters)
+    if not g.is_cuda or g.device != parameters.device:
+        raise ValueError(f"g on {g.device}, parameters on {parameters.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32; got {g.dtype}")
+    k, b, h, w, c = parameters.shape
+    if tuple(g.shape) != (k, b, h, w, 1):
+        raise ValueError(f"g must be [k, B, H, W, 1] = {(k, b, h, w, 1)}; got {tuple(g.shape)}")
+    dp = torch.empty_like(parameters)
+    if dp.numel():
+        with torch.cuda.device(parameters.device):
+            err = _library().mdl_log_prob_backward(
+                x01.data_ptr(), parameters.data_ptr(), g.data_ptr(), dp.data_ptr(),
+                int(parameters.dtype == torch.bfloat16), c // 10,
+                k, b, h, w, *x01.stride(), *parameters.stride(), *g.stride()[:4],
+                *dp.stride(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mdl_log_prob backward kernel launch failed: CUDA error {err}")
+        backward_launches += 1
+    return dp
+
+
+def _dl_grads(x, loc, logscale):
+    """d(discretized_logistic_log_prob)/d(loc, logscale) on [-1, 1] with 256
+    bins: ``_dl_grads`` of the Pallas kernel. The CDF difference's floor
+    passes no gradient (``live``); the edge conditions compare x only."""
+    inv_std = torch.exp(-logscale)
+    centered = x - loc
+    start = (centered - _HALF_BIN) * inv_std
+    stop = (centered + _HALF_BIN) * inv_std
+    sg_stop = torch.sigmoid(stop)
+    sg_start = torch.sigmoid(start)
+    diff = sg_stop - sg_start
+    prob = torch.clamp_min(diff, 1e-12)
+    live = diff > 1e-12
+    zero = x.new_zeros(())
+    ds = torch.where(live, sg_stop * (1.0 - sg_stop) / prob, zero)
+    da = torch.where(live, sg_start * (1.0 - sg_start) / prob, zero)
+    d_loc = inv_std * (da - ds)
+    d_ls = da * start - ds * stop
+
+    a = centered * inv_std
+    c_ap = 2.0 * torch.sigmoid(-a) - 1.0
+    use_log = prob > 1e-5
+    d_loc = torch.where(use_log, d_loc, -c_ap * inv_std)
+    d_ls = torch.where(use_log, d_ls, -c_ap * a - 1.0)
+
+    left = x <= -1.0
+    le = torch.sigmoid(-stop)
+    d_loc = torch.where(left, -le * inv_std, d_loc)
+    d_ls = torch.where(left, -le * stop, d_ls)
+
+    right = x >= 1.0
+    d_loc = torch.where(right, sg_start * inv_std, d_loc)
+    d_ls = torch.where(right, sg_start * start, d_ls)
+    return d_loc, d_ls
+
+
+def mdl_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's plain version, ``_bwd_math`` of the Pallas
+    kernel over all pixels at once: x ``[..., H, W, 3]`` in [0, 1],
+    parameters ``[..., H, W, 10n]``, cotangent g ``[..., H, W, 1]`` ->
+    d(sum g * mdl_log_prob)/d parameters in the parameters' dtype, float32
+    math (float64 for float64 parameters). With s = softmax(w) over mixtures and gw = g * s:
+
+      d logits = g * (s - softmax(logits))
+      d loc_c  = gw * dL_c                  (the autoregression is additive)
+      d ls_c   = gw * dS_c * [ls_raw > -7]  (clamp mask: 0 at the tie)
+      d cf_r   = gw * dL_g * x_r * (1 - tanh(cf_r)^2)
+      d cf_g   = gw * dL_b * x_r * (1 - tanh(cf_g)^2)
+      d cf_b   = gw * dL_b * x_g * (1 - tanh(cf_b)^2)
+
+    with (dL_c, dS_c) from ``_dl_grads`` per channel. Autograd of
+    ``mixture_log_prob`` differs from this only at ties (it passes half the
+    gradient where a clamp is at its bound) and in rounding.
+    """
+    dtype = torch.promote_types(parameters.dtype, torch.float32)
+    with torch.no_grad():
+        p = parameters.to(dtype)
+        n = p.shape[-1] // 10
+        x = x01.to(dtype) * 2.0 - 1.0
+        xr, xg, xb = x[..., 0:1], x[..., 1:2], x[..., 2:3]
+        g = g.to(dtype)
+        logits = p[..., 0:n]
+        loc_r, ls_r, cf_r = p[..., n:2 * n], p[..., 2 * n:3 * n], p[..., 3 * n:4 * n]
+        loc_g, ls_g, cf_g = p[..., 4 * n:5 * n], p[..., 5 * n:6 * n], p[..., 6 * n:7 * n]
+        loc_b, ls_b, cf_b = p[..., 7 * n:8 * n], p[..., 8 * n:9 * n], p[..., 9 * n:10 * n]
+
+        cf_r, cf_g, cf_b = torch.tanh(torch.cat([cf_r, cf_g, cf_b], dim=-1)).split(n, dim=-1)
+        ls_raw = torch.cat([ls_r, ls_g, ls_b], dim=-1)
+        ls_all = torch.clamp_min(ls_raw, -7.0)
+        loc_all = torch.cat([loc_r, loc_g + cf_r * xr, loc_b + cf_g * xr + cf_b * xg], dim=-1)
+        lead = loc_r.shape
+        x_all = torch.cat([xr.expand(lead), xg.expand(lead), xb.expand(lead)], dim=-1)
+
+        lp_all = discretized_logistic_log_prob(x_all, loc_all, ls_all,
+                                               interval_width=2.0 / 255.0)
+        lp = lp_all[..., 0:n] + lp_all[..., n:2 * n] + lp_all[..., 2 * n:3 * n]
+        w = lp + (logits - torch.logsumexp(logits, dim=-1, keepdim=True))
+        s = torch.softmax(w, dim=-1)
+        gw = g * s
+        d_logits = g * (s - torch.softmax(logits, dim=-1))
+
+        dL_all, dS_all = _dl_grads(x_all, loc_all, ls_all)
+        gw3 = torch.cat([gw, gw, gw], dim=-1)
+        gL_r, gL_g, gL_b = (gw3 * dL_all).split(n, dim=-1)
+        dS_r, dS_g, dS_b = torch.where(ls_raw > -7.0, gw3 * dS_all,
+                                       p.new_zeros(())).split(n, dim=-1)
+        d_cf_r = gL_g * xr * (1.0 - cf_r * cf_r)
+        d_cf_g = gL_b * xr * (1.0 - cf_g * cf_g)
+        d_cf_b = gL_b * xg * (1.0 - cf_b * cf_b)
+        grad = torch.cat([d_logits, gL_r, dS_r, d_cf_r, gL_g, dS_g, d_cf_g,
+                          gL_b, dS_b, d_cf_b], dim=-1)
+        return grad.to(parameters.dtype)
+
+
+def mdl_backward(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d(sum g * mdl_log_prob)/d parameters: the plain version for CPU
+    tensors, the backward kernel for CUDA tensors."""
+    if x01.device.type == "cpu" and parameters.device.type == "cpu":
+        return mdl_backward_plain(x01, parameters, g)
+    return mdl_backward_cuda(x01, parameters, g)
+
+
+def _plain_x_grad(x01, parameters, g):
+    """The images' gradient through the plain version's autograd."""
+    with torch.enable_grad():
+        x = x01.detach().requires_grad_(True)
+        out = mixture_log_prob(x, parameters.detach().float())
+        (dx,) = torch.autograd.grad(out, x, g)
+    return dx
+
+
 class _MDLLogProb(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, parameters):
+        ctx.save_for_backward(x01, parameters)
         return _launch(x01, parameters)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the MoDL log-prob backward kernel is not ported yet (ROADMAP.md, "
-            "Queue 2 item 1: the backward kernel covering K1b/K2b/K3b/K4b); "
-            "use use_pallas=False to differentiate through the plain version")
+        x01, parameters = ctx.saved_tensors
+        d_x = d_params = None
+        if ctx.needs_input_grad[1]:
+            d_params = mdl_backward_cuda(x01, parameters, grad_out)
+        if ctx.needs_input_grad[0]:
+            d_x = _plain_x_grad(x01, parameters, grad_out)
+        return d_x, d_params
 
 
 def mdl_log_prob_cuda(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
     """The kernel: x ``[B, H, W, 3]`` float32 in [0, 1], parameters
     ``[k, B, H, W, 10n]`` float32 or bfloat16, any strides, on one CUDA
-    device -> ``[k, B, H, W, 1]`` float32."""
+    device -> ``[k, B, H, W, 1]`` float32. Differentiable: the parameters'
+    gradient comes from the backward kernel."""
     return _MDLLogProb.apply(x01, parameters)
 
 

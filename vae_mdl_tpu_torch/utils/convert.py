@@ -13,15 +13,26 @@ leaf ``encoder/conv_0/kernel`` becomes ``encoder.conv_0.weight``. Per leaf:
 - transposed-conv kernels go from HWIO to IOHW and are flipped in both
   spatial axes: Flax correlates the dilated input with the kernel as it is,
   ``conv_transpose2d`` with the kernel flipped.
+
+``train_state_from_flax`` and ``train_state_to_flax`` carry a whole training
+state across: the params as above, optax Adam's (or Adamax's) ``count``,
+``mu`` and ``nu``, whose leaves are shaped as the params and convert the
+same way, the step, the best validation loss and the EMA copy. The JAX
+state is read and written through its attributes only (``params``,
+``opt_state``, ``step``, ``best_val_loss``, ``ema_params``, optax's
+namedtuples), so this module needs neither jax nor optax. The port's
+generators are seeded from an integer, not from a JAX key, so the seed is
+given, not carried.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from vae_mdl_tpu_torch.config import ModelConfig
+from vae_mdl_tpu_torch.config import ExperimentConfig, ModelConfig
+from vae_mdl_tpu_torch.train.state import TrainState, create_train_state
 
 
 def _is_transposed(cfg: ModelConfig, part: str, name: str) -> bool:
@@ -73,3 +84,83 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor], cfg: ModelConfig) -> dic
             array, leaf = kernel_to_flax(array, _is_transposed(cfg, part, name)), "kernel"
         tree.setdefault(part, {}).setdefault(name, {})[leaf] = array.copy()
     return {"params": tree}
+
+
+def _fields(node) -> tuple:
+    """A namedtuple's field names (optax's states are namedtuples)."""
+    return getattr(node, "_fields", ())
+
+
+def _is_adam(node) -> bool:
+    return all(f in _fields(node) for f in ("count", "mu", "nu"))
+
+
+def _find_adam(tree):
+    """The first optax state with ``count``, ``mu`` and ``nu`` in a nest of
+    tuples (``optax.adam`` is a chain of scale_by_adam and the schedule)."""
+    if _is_adam(tree):
+        return tree
+    if isinstance(tree, tuple):
+        for node in tree:
+            found = _find_adam(node)
+            if found is not None:
+                return found
+    return None
+
+
+def _port_adam(cfg: ExperimentConfig, opt_state) -> dict:
+    if cfg.train.optimizer not in ("adam", "adamax") or cfg.train.grad_accum_steps > 1:
+        raise NotImplementedError(
+            "the train-state bridge carries optax.adam and optax.adamax states "
+            f"without accumulation; got optimizer={cfg.train.optimizer!r}, "
+            f"grad_accum_steps={cfg.train.grad_accum_steps}")
+    return opt_state[-1] if isinstance(opt_state, list) else opt_state
+
+
+def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConfig,
+                          seed: Optional[int] = None) -> TrainState:
+    """A JAX ``TrainState`` -> the port's, with ``model``'s parameters set
+    from it (on the model's device). ``seed`` defaults to ``cfg.train.seed``."""
+    device = next(model.parameters()).device
+    model.load_state_dict(params_from_flax(jax_state.params, cfg.model))
+    state = create_train_state(model, cfg.train)
+    state.seed = cfg.train.seed if seed is None else seed
+    state.step = int(np.asarray(jax_state.step))
+    state.best_val_loss = float(np.asarray(jax_state.best_val_loss))
+    adam = _find_adam(jax_state.opt_state)
+    port = _port_adam(cfg, state.opt_state)
+    port["count"] = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device)
+    for moment in ("mu", "nu"):
+        port[moment] = {name: t.to(device)
+                        for name, t in params_from_flax(getattr(adam, moment), cfg.model).items()}
+    if jax_state.ema_params is not None:
+        state.ema_params = {name: t.to(device) for name, t in
+                            params_from_flax(jax_state.ema_params, cfg.model).items()}
+    return state
+
+
+def train_state_to_flax(state: TrainState, cfg: ExperimentConfig, like):
+    """The port's ``TrainState`` -> a JAX ``TrainState`` shaped as ``like``
+    (one built by the JAX package's ``create_train_state`` for the same
+    config), with numpy leaves; ``like``'s RNG key is kept."""
+    port = _port_adam(cfg, state.opt_state)
+    count = np.asarray(int(port["count"]), np.int32)
+
+    def fill(node):
+        if _is_adam(node):
+            return node._replace(count=count, mu=params_to_flax(port["mu"], cfg.model),
+                                 nu=params_to_flax(port["nu"], cfg.model))
+        if "count" in _fields(node):  # the schedule's count
+            return node._replace(count=count)
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):  # a chain
+            return tuple(fill(n) for n in node)
+        return node
+
+    return like.replace(
+        params=params_to_flax(state.params, cfg.model),
+        opt_state=fill(like.opt_state),
+        step=np.asarray(state.step, np.int32),
+        best_val_loss=np.asarray(state.best_val_loss, np.float32),
+        ema_params=(None if state.ema_params is None
+                    else params_to_flax(state.ema_params, cfg.model)),
+    )
