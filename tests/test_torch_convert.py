@@ -116,7 +116,7 @@ def test_model05_round_trip_is_exact():
         jnp.zeros((1, 32, 32, 3))))
     state = params_from_flax(variables, MODELS["model05"])
     assert sum(v.numel() for v in state.values()) == 1_035_962
-    build_model(MODELS["model05"]).load_state_dict(state, strict=True)
+    build_model(MODELS["model05"], device="cpu").load_state_dict(state, strict=True)
     back = params_to_flax(state, MODELS["model05"])
     assert (jax.tree_util.tree_structure(back)
             == jax.tree_util.tree_structure(variables))

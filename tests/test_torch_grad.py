@@ -187,7 +187,7 @@ class GradPair:
         self.variables = jax.tree_util.tree_map(np.asarray, init(
             {"params": jax.random.PRNGKey(seed), "sample": jax.random.PRNGKey(seed + 1)},
             jnp.zeros((1, h, w, c))))
-        self.model = build_model(cfg)
+        self.model = build_model(cfg, device="cpu")
         self.model.load_state_dict(params_from_flax(self.variables, cfg))
         prior = jax_prior_for(jax_cfg)
 

@@ -62,7 +62,7 @@ class Pair:
         self.variables = jax.tree_util.tree_map(np.asarray, init(
             {"params": jax.random.PRNGKey(seed), "sample": jax.random.PRNGKey(seed + 1)},
             jnp.zeros((1, h, w, c))))
-        self.model = build_model(cfg)
+        self.model = build_model(cfg, device="cpu")
         self.model.load_state_dict(params_from_flax(self.variables, cfg))
         prior = jax_prior_for(jax_cfg)
 
@@ -162,7 +162,7 @@ def _noise_free(cfg):
     """A model whose log-weight does not depend on the noise: q(z|x) is
     N(0, 1), the prior, and the decoder ignores z, so log w = log p(x | .)
     is one number per image."""
-    model = build_model(cfg, torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         model.encoder.Dense_0.weight.zero_()
         model.encoder.Dense_0.bias.zero_()
@@ -191,7 +191,7 @@ def test_evaluate_llh_padded_tail_equals_unpadded_batches():
 def test_evaluate_llh_is_deterministic_per_seed():
     cfg = _narrow(config)
     ecfg = config.ExperimentConfig(model=cfg)
-    model = build_model(cfg, torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     images = np.random.default_rng(5).integers(0, 256, (3, 8, 8, 3)).astype(np.uint8)
     run = [evaluate_llh(model, ecfg, images, n_samples=4, k_chunk=2, batch_size=2,
                         seed=s)[1] for s in (7, 7, 8)]
@@ -206,7 +206,7 @@ def test_bf16_config_runs_the_body_in_bf16_and_the_likelihood_in_f32(model05):
     config's (relative 1e-3)."""
     cfg = dataclasses.replace(MODELS["model05"], compute_dtype="bfloat16",
                               likelihood_io_dtype="bfloat16")
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(model05.model.state_dict())
     images, eps = model05.inputs(np.random.default_rng(6), batch=2, k=3)
     x = torch.from_numpy(images.astype(np.float32) / 255.0)

@@ -181,7 +181,7 @@ def test_train_state_bridge_round_trips(train_over):
     for _ in range(2):
         jst, _ = step(jst, batch)
 
-    model = build_model(cfg.model)
+    model = build_model(cfg.model, device="cpu")
     state = train_state_from_flax(jst, model, cfg, seed=7)
     assert state.step == 2 and state.seed == 7
     adam = state.opt_state[-1] if isinstance(state.opt_state, list) else state.opt_state

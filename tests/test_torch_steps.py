@@ -58,7 +58,7 @@ def _cfg(objective="iwae", free_bits=0.0, **train):
 
 
 def _setup(cfg, seed=0):
-    model = build_model(cfg.model, torch.Generator().manual_seed(seed))
+    model = build_model(cfg.model, torch.Generator().manual_seed(seed), device="cpu")
     return model, make_optimizer(cfg.train), create_train_state(model, cfg.train)
 
 

@@ -48,45 +48,28 @@
 //
 // Each C entry point returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "dl_cascade.cuh"
 
 namespace {
+
+using dlc::load;
+using dlc::store;
 
 constexpr int kMaxMix = 10;
 constexpr float kHalfBin = 0.003921568859368563f;   // float32(1/255): half of the 2/255 bin
 constexpr float kLogBinWidth = -4.848116364598481f;  // log(2/255)
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+// The MoDL's bins: 256 levels on [-1, 1]. The cascade and its derivative are
+// the shared device functions of dl_cascade.cuh with these constants.
+__device__ __forceinline__ dlc::Bin modl_bin() { return {-1.0f, 1.0f, kHalfBin, kLogBinWidth}; }
 
-// jax.nn.softplus's form: max(v, 0) + log1p(exp(-|v|))
-__device__ __forceinline__ float softplus(float v) {
-  return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// log P(bin of x) under a logistic with this loc and (clamped) logscale, on
-// [-1, 1] with 256 bins: distributions/discretized.py, branch for branch.
 __device__ __forceinline__ float dl_log_prob(float x, float loc, float logscale) {
-  const float centered = x - loc;
-  const float inv_std = expf(-logscale);
-  const float start = (centered - kHalfBin) * inv_std;
-  const float stop = (centered + kHalfBin) * inv_std;
-  if (x >= 1.0f) return -softplus(start);         // right edge bin
-  if (x <= -1.0f) return stop - softplus(stop);   // left edge bin
-  const float prob = fmaxf(sigmoid(stop) - sigmoid(start), 1e-12f);
-  if (prob > 1e-5f) return logf(prob);
-  // the CDF difference underflows: PDF * bin width
-  const float a = centered * inv_std;
-  return -a - logscale - 2.0f * softplus(-a) + kLogBinWidth;
+  return dlc::dl_log_prob(x, loc, logscale, modl_bin());
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ dlc::DLGrad dl_grads(float x, float loc, float logscale) {
+  return dlc::dl_grads(x, loc, logscale, modl_bin());
+}
 
 // The n_mix log weights of one pixel, w[m] = log softmax(logits)[m] + the
 // three sub-pixel log-probs of mixture m, and the logits' max and
@@ -160,41 +143,6 @@ __global__ void mdl_log_prob_kernel(
   }
 }
 
-// d dl_log_prob / d (loc, logscale): _dl_grads of the Pallas kernel, branch
-// for branch. The edge conditions compare x only, so they select but never
-// differentiate; in the CDF-difference branch prob > 1e-5 implies the floor
-// is not active.
-struct DLGrad {
-  float d_loc, d_ls;
-};
-
-__device__ __forceinline__ DLGrad dl_grads(float x, float loc, float logscale) {
-  const float inv_std = expf(-logscale);
-  const float centered = x - loc;
-  const float start = (centered - kHalfBin) * inv_std;
-  const float stop = (centered + kHalfBin) * inv_std;
-  if (x >= 1.0f) {  // right edge bin: -softplus(start)
-    const float ri = sigmoid(start);
-    return {ri * inv_std, ri * start};
-  }
-  if (x <= -1.0f) {  // left edge bin: stop - softplus(stop)
-    const float le = sigmoid(-stop);
-    return {-le * inv_std, -le * stop};
-  }
-  const float sg_stop = sigmoid(stop);
-  const float sg_start = sigmoid(start);
-  const float prob = fmaxf(sg_stop - sg_start, 1e-12f);
-  if (prob > 1e-5f) {  // log(prob)
-    const float ds = sg_stop * (1.0f - sg_stop) / prob;
-    const float da = sg_start * (1.0f - sg_start) / prob;
-    return {inv_std * (da - ds), da * start - ds * stop};
-  }
-  // PDF * bin width: -a - logscale - 2 softplus(-a) + log(width)
-  const float a = centered * inv_std;
-  const float c_ap = 2.0f * sigmoid(-a) - 1.0f;
-  return {-c_ap * inv_std, -c_ap * a - 1.0f};
-}
-
 // With s = softmax(w) over mixtures and gw = g * s (the logsumexp pullback):
 //   d logits = g * (s - softmax(logits))
 //   d loc_c  = gw * dL_c                 (the autoregression is additive)
@@ -253,9 +201,9 @@ __global__ void mdl_log_prob_backward_kernel(
       const float loc_r = load(pp + (N + m) * ps_c);
       const float loc_g = load(pp + (4 * N + m) * ps_c) + cf_r * xr;
       const float loc_b = load(pp + (7 * N + m) * ps_c) + cf_g * xr + cf_b * xg;
-      const DLGrad dr = dl_grads(xr, loc_r, fmaxf(ls_r_raw, -7.0f));
-      const DLGrad dg = dl_grads(xg, loc_g, fmaxf(ls_g_raw, -7.0f));
-      const DLGrad db = dl_grads(xb, loc_b, fmaxf(ls_b_raw, -7.0f));
+      const dlc::DLGrad dr = dl_grads(xr, loc_r, fmaxf(ls_r_raw, -7.0f));
+      const dlc::DLGrad dg = dl_grads(xg, loc_g, fmaxf(ls_g_raw, -7.0f));
+      const dlc::DLGrad db = dl_grads(xb, loc_b, fmaxf(ls_b_raw, -7.0f));
       const float gl_r = gw * dr.d_loc;
       const float gl_g = gw * dg.d_loc;
       const float gl_b = gw * db.d_loc;

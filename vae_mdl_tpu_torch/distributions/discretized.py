@@ -1,16 +1,22 @@
-"""Discretized logistic log-probability.
+"""Discretized logistic likelihood.
 
-Port of ``vae_mdl_tpu/distributions/discretized.py:25-72``, the one cascade
-every MoDL path shares: the plain version, and the CUDA kernel's math in
-``csrc/mdl_log_prob.cu``, which follows it branch for branch.
+Port of ``vae_mdl_tpu/distributions/discretized.py``: the free function
+``discretized_logistic_log_prob`` is the one cascade every discretized
+likelihood shares (the plain version of the CUDA kernels, whose device
+functions in ``csrc/dl_cascade.cuh`` follow it branch for branch), and
+``DiscretizedLogistic`` is the observation distribution of model03, model04
+and model06.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 
-from vae_mdl_tpu_torch.distributions.continuous import softplus
+from vae_mdl_tpu_torch.distributions.base import Distribution
+from vae_mdl_tpu_torch.distributions.continuous import Logistic, softplus
 
 
 def discretized_logistic_log_prob(
@@ -54,3 +60,54 @@ def discretized_logistic_log_prob(
     safe_log_prob = torch.where(x <= low, left_edge, safe_log_prob)
     safe_log_prob = torch.where(x >= high, right_edge, safe_log_prob)
     return safe_log_prob
+
+
+@dataclasses.dataclass
+class DiscretizedLogistic(Distribution):
+    """A logistic binned into ``levels`` values covering ``[low, high]``.
+
+    ``use_pallas=True`` takes the hand-written CUDA kernel
+    (``ops/cuda/dl_kernel.py``) and needs CUDA parameters; ``False`` takes
+    the plain version. ``nn.decoders.resolve_use_pallas`` makes the choice
+    from the config.
+    """
+
+    loc: torch.Tensor
+    logscale: torch.Tensor
+    low: float = -1.0
+    high: float = 1.0
+    levels: float = 256.0
+    event_axes: Tuple[int, ...] = (-1, -2, -3)
+    use_pallas: bool = False
+
+    @property
+    def interval_width(self) -> float:
+        return (self.high - self.low) / (self.levels - 1.0)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas:
+            if not self.loc.is_cuda:
+                raise ValueError(
+                    "use_pallas=True selects the CUDA discretized-logistic kernel, "
+                    f"but the parameters lie on {self.loc.device}; pass "
+                    "use_pallas=None (auto) or False for CPU tensors")
+            from vae_mdl_tpu_torch.ops.cuda.dl_kernel import dl_log_prob
+
+            return dl_log_prob(x, self.loc, self.logscale, self.low, self.high,
+                               self.interval_width)
+        return discretized_logistic_log_prob(
+            x, self.loc, self.logscale, low=self.low, high=self.high,
+            interval_width=self.interval_width)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               sample_shape: Tuple[int, ...] = (),
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A clipped continuous logistic sample; like the reference's, it is
+        not binned. ``noise`` injects the uniforms of the logistic draw."""
+        s = Logistic(self.loc, torch.exp(self.logscale)).sample(generator, sample_shape,
+                                                                noise=noise)
+        return torch.clamp(s, self.low, self.high)
+
+    def mean(self) -> torch.Tensor:
+        return torch.broadcast_to(
+            self.loc, torch.broadcast_shapes(self.loc.shape, self.logscale.shape))

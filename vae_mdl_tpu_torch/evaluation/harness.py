@@ -8,8 +8,9 @@ from ``vae_mdl_tpu/evaluation/harness.py`` for one process on one device:
 - the k = 5000 samples are streamed in k-chunks folded into a streaming
   logmeanexp (``ops.math``); ``[5000, B, H, W, C]`` never exists;
 - the chunk loop is a Python loop under ``torch.inference_mode()``;
-  q(z | x) is computed once per batch and reused by every chunk (the JAX
-  version recomputes it per chunk; the numbers are the same);
+  q(z_1 | x) is computed once per batch and reused by every chunk (the JAX
+  version recomputes it per chunk; the numbers are the same), and the upper
+  stochastic layers are sampled per chunk from it;
 - each batch draws from its own generator, seeded from ``(seed, batch
   index)``, so a batch's result does not depend on the batches before it.
 
@@ -25,7 +26,6 @@ import numpy as np
 import torch
 
 from vae_mdl_tpu_torch.config import ExperimentConfig
-from vae_mdl_tpu_torch.distributions import DistributionTuple
 from vae_mdl_tpu_torch.models.objective import log_weights
 from vae_mdl_tpu_torch.models.vae import prior_for
 from vae_mdl_tpu_torch.ops.math import (
@@ -50,12 +50,13 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
 
     ``batch``: uint8 images (scaled by 1/255) or floats in [0, 1],
     ``[B, H, W, C]``, on the model's device. The standard-normal draws come
-    from ``generator``, or from ``eps`` ``[n_chunks, k_chunk, B, n_latent]``.
+    from ``generator``, or from ``eps`` ``[n_chunks, k_chunk, B, n_latent]``
+    (z_1's noise, or a sequence with one such tensor per stochastic layer).
     """
     k_chunk, n_chunks = effective_chunks(n_samples, k_chunk)
 
     def batch_llh(batch: torch.Tensor, generator: Optional[torch.Generator] = None,
-                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  eps=None) -> torch.Tensor:
         with torch.inference_mode():
             x = batch.float()
             if not batch.is_floating_point():
@@ -63,10 +64,13 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
             prior = prior_for(cfg.model, x.device)
             q = model.encoder(x)
             state = streaming_logmeanexp_init((x.shape[0],), device=x.device)
+            if isinstance(eps, torch.Tensor):
+                eps = (eps,)
             for j in range(n_chunks):
-                z = q.sample(generator, (k_chunk,), noise=None if eps is None else eps[j])
-                Qs = (DistributionTuple(q, z, axes=(-1,)),)
-                log_w = log_weights(prior, Qs, (), model.decode(z), x)  # [k_chunk, B]
+                noise = None if eps is None else [layer[j] for layer in eps]
+                Qs = model.sample_posterior(q, k_chunk, generator, noise)
+                Ps, pxz = model.decode_down(Qs)
+                log_w = log_weights(prior, Qs, Ps, pxz, x)  # [k_chunk, B]
                 state = streaming_logmeanexp_update(state, log_w, dim=0)
             return streaming_logmeanexp_finalize(state)
 

@@ -2,9 +2,9 @@
 
 Port of ``bound_terms``, ``log_weights``, ``compute_loss``,
 ``_free_bits_elbo``, ``_dreg_half``, ``stop_gradient_half`` and
-``training_loss_fn`` from ``vae_mdl_tpu/models/objective.py`` for one
-stochastic layer (the model05 family); the two- and L-layer bounds wait for
-the hierarchical models.
+``training_loss_fn`` from ``vae_mdl_tpu/models/objective.py``, at any
+stochastic depth: ``compute_loss`` picks ``iwae_loss`` for one layer,
+``two_layer_iwae_loss`` for two and ``hierarchical_iwae_loss`` above.
 
 Parameters are handled as ``{name: tensor}`` dicts, the model's
 ``named_parameters()``: ``training_loss_fn`` builds ``loss_fn(params)``,
@@ -21,7 +21,14 @@ import torch
 from torch import nn
 
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
-from vae_mdl_tpu_torch.models.losses import Metrics, _bits_per_dim, _reduce, iwae_loss
+from vae_mdl_tpu_torch.models.losses import (
+    Metrics,
+    _bits_per_dim,
+    _reduce,
+    hierarchical_iwae_loss,
+    iwae_loss,
+    two_layer_iwae_loss,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,6 +54,10 @@ def bound_terms(
     ``stop_q_params=True`` evaluates each q's log-prob under detached
     distribution parameters while the sample z stays live: the log-weight of
     the DReG estimator for one stochastic layer (Tucker et al. 2019, eq. 12).
+    With hierarchical posteriors q_i(z_i | z_{i-1}) that would sever the live
+    route z_{i-1} -> q_i's parameters; ``training_loss_fn`` re-evaluates the
+    inference maps on detached weights at the live latents instead
+    (``VAE.posterior_at``).
     """
     def qd(q):
         return _detached(q.dist) if stop_q_params else q.dist
@@ -108,10 +119,12 @@ def compute_loss(
             return _free_bits_elbo(prior, Qs, Ps, pxz, x, beta, free_bits)
         elbo = torch.mean(log_weights(prior, Qs, Ps, pxz, x, beta=beta))
         return -elbo, {"elbo": elbo, "bpd": _bits_per_dim(elbo, x), "loss": -elbo}
-    if len(Qs) != 1:
-        raise NotImplementedError(
-            "the two- and L-layer IWAE bounds are not ported yet (ROADMAP.md Queue 1)")
-    return iwae_loss(x, Qs[0].z, prior, Qs[0].dist, pxz.dist, beta=beta)
+    if len(Qs) == 1:
+        return iwae_loss(x, Qs[0].z, prior, Qs[0].dist, pxz.dist, beta=beta)
+    if len(Qs) == 2:
+        return two_layer_iwae_loss(x, prior, Qs[0], Qs[1], Ps[0], pxz, beta=beta)
+    return hierarchical_iwae_loss(
+        x, Qs, Ps, pxz, DistributionTuple(prior, None, axes=prior.event_axes), beta=beta)
 
 
 def _free_bits_elbo(prior, Qs, Ps, pxz, x, beta, free_bits):
@@ -190,22 +203,25 @@ def apply(model: nn.Module, params: Params, *args, method: str = "forward", **kw
 
 def training_loss_fn(model, cfg, prior: Normal, x: torch.Tensor, k: int,
                      generator: Optional[torch.Generator] = None, beta: float = 1.0,
-                     eps: Optional[torch.Tensor] = None):
+                     eps=None):
     """Build ``loss_fn(params) -> (loss, metrics)`` for one train step.
 
-    The standard-normal noise ``eps`` ``[k, B, n_latent]`` is drawn once
-    from ``generator`` (or injected), so every forward pass of one step, as
-    the DReG surrogates need, sees the same latents. For "iwae" and "elbo"
-    the loss is the plain forward and ``compute_loss``. For "iwae_dreg" the
-    loss value is the IWAE bound and its gradient the DReG estimator,
-    assembled from two forward passes with complementary halves detached.
+    The standard-normal noise is drawn once from ``generator``, one tensor
+    ``[k, B, n_i]`` per stochastic layer (or injected as ``eps``: z_1's
+    tensor, or a sequence with one per layer), so every forward pass of one
+    step, as the DReG surrogates need, sees the same latents. For "iwae" and
+    "elbo" the loss is the plain forward and ``compute_loss``. For
+    "iwae_dreg" the loss value is the IWAE bound and its gradient the DReG
+    estimator, assembled from two forward passes with complementary halves
+    detached.
     """
     objective = cfg.model.objective
     free_bits = cfg.model.free_bits
     _check_free_bits(objective, free_bits)
-    if eps is None:
-        eps = torch.randn((k, x.shape[0], cfg.model.latents()[0]), generator=generator,
-                          device=x.device)
+    eps = [eps] if isinstance(eps, torch.Tensor) else list(eps or ())
+    # the layers given no noise draw theirs, bottom up
+    eps += [torch.randn((k, x.shape[0], n), generator=generator, device=x.device)
+            for n in cfg.model.latents()[len(eps):]]
 
     if objective != "iwae_dreg":
         def loss_fn(params: Params):

@@ -1,28 +1,39 @@
-"""The VAE/IWAE model family, one stochastic layer with conv encoder/decoder.
+"""The VAE/IWAE model family as one configurable module.
 
-Port of ``VAE`` (with ``posterior_at``), ``prior_for`` and ``build_model``
-from ``vae_mdl_tpu/models/vae.py`` for the model05 path: encoder -> q(z|x),
-k importance samples as a leading axis, decoder -> p(x|z) with the MoDL head.
+Port of ``VAE``, ``prior_for`` and ``build_model`` from
+``vae_mdl_tpu/models/vae.py`` for the conv families with the "mdl" and "dl"
+heads (model03 - model06):
+
+- one stochastic layer: encoder -> q(z|x), k importance samples as a leading
+  axis, decoder -> p(x|z) with the configured likelihood head;
+- L >= 2 stochastic layers (model06): MLP blocks q(z_i | z_{i-1}) up
+  (``mlp_encoder_{i}``), MLP blocks p(z_{i-1} | z_i) down
+  (``mlp_decoder_{i}``), a standard-normal prior on the top latent. The
+  upper layers are sampled once per z_1 sample.
 
 Randomness comes from an explicit ``torch.Generator``, or as injected
-standard-normal noise ``eps`` ``[k, B, n_latent]``. Unlike the JAX
-``decode``, which draws an x sample the evaluator never uses, ``decode``
-here returns the observation distribution without a sample.
+standard-normal noise ``eps``: one tensor ``[k, B, n_latent]`` for z_1, or a
+sequence with one tensor per stochastic layer, bottom up (the upper layers'
+``[k, B, n_i]``). Unlike the JAX ``decode``, which draws an x sample the
+evaluator never uses, ``decode`` here returns the observation distribution
+without a sample.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from vae_mdl_tpu_torch.config import ModelConfig
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
-from vae_mdl_tpu_torch.nn.blocks import DTYPES
+from vae_mdl_tpu_torch.nn.blocks import DTYPES, MLPBlock
 from vae_mdl_tpu_torch.nn.decoders import ConvDecoder
 from vae_mdl_tpu_torch.nn.encoders import ConvEncoder, ConvSpec
 
 _LATENT_AXES = (-1,)
+
+Noise = Union[torch.Tensor, Sequence[torch.Tensor], None]
 
 
 def _specs(layers) -> Tuple[ConvSpec, ...]:
@@ -32,62 +43,128 @@ def _specs(layers) -> Tuple[ConvSpec, ...]:
     )
 
 
+def _per_layer(eps: Noise, n_layers: int) -> Tuple[Optional[torch.Tensor], ...]:
+    """``eps`` as one entry per stochastic layer (None = draw it)."""
+    if eps is None:
+        return (None,) * n_layers
+    if isinstance(eps, torch.Tensor):
+        return (eps,) + (None,) * (n_layers - 1)
+    if len(eps) != n_layers:
+        raise ValueError(f"noise for {len(eps)} layers given to a model of {n_layers}")
+    return tuple(eps)
+
+
 class VAE(nn.Module):
-    """Importance-weighted autoencoder with one stochastic layer."""
+    """Configurable importance-weighted autoencoder."""
 
     def __init__(self, config: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
         missing = [what for what, ok in (
-            ("conv encoder", cfg.encoder.kind == "conv" and not cfg.encoder.n_glu),
-            ("conv decoder", cfg.decoder.kind == "conv" and not cfg.decoder.n_glu
-             and not cfg.decoder.pre_layers and not cfg.decoder.head_pad),
-            ("one stochastic layer", cfg.n_stochastic == 1),
-            ("mdl likelihood", cfg.likelihood == "mdl"),
+            ("the MLP encoder (model01)", cfg.encoder.kind == "conv"),
+            ("the MLP decoder (model01)", cfg.decoder.kind == "conv"),
+            ("DecoderConfig.head_pad, a TPU lane-alignment experiment",
+             not cfg.decoder.head_pad),
+            (f"the {cfg.likelihood!r} likelihood", cfg.likelihood in ("mdl", "dl")),
         ) if not ok]
         if missing:
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the model05 family only; "
-                f"needs {', '.join(missing)} (ROADMAP.md Queue 1)")
+                f"{cfg.name}: the port covers the conv families with the 'mdl' and "
+                f"'dl' heads; not ported yet: {', '.join(missing)} (ROADMAP.md Queue 1)")
         self.config = cfg
         dtype = DTYPES[cfg.compute_dtype]
-        self.encoder = ConvEncoder(_specs(cfg.encoder.conv_layers), cfg.image_shape,
-                                   cfg.n_latent, dtype, generator)
+        latents = cfg.latents()
+        self.encoder = ConvEncoder(
+            _specs(cfg.encoder.conv_layers), cfg.image_shape, latents[0], dtype, generator,
+            n_glu=cfg.encoder.n_glu, glu_features=cfg.encoder.glu_features,
+            glu_activation=cfg.encoder.glu_activation)
         self.decoder = ConvDecoder(
-            _specs(cfg.decoder.conv_layers), cfg.n_latent,
+            _specs(cfg.decoder.conv_layers), latents[0],
             base_size=cfg.decoder.base_size, out_shape=cfg.image_shape,
             fc_activation=cfg.decoder.fc_activation, likelihood=cfg.likelihood,
             n_mix=cfg.n_mix, bound_logstd=cfg.bound_logstd,
             use_pallas=cfg.use_pallas, likelihood_io_dtype=cfg.likelihood_io_dtype,
-            dtype=dtype, generator=generator)
+            dtype=dtype, generator=generator,
+            pre_specs=_specs(cfg.decoder.pre_layers), n_glu=cfg.decoder.n_glu,
+            glu_features=cfg.decoder.glu_features,
+            glu_activation=cfg.decoder.glu_activation)
+
+        # stochastic layers 2..L: inference (up) and generative (down) MLPs
+        self.mlp_encoders, self.mlp_decoders = [], []
+        for i in range(1, cfg.n_stochastic):
+            up = MLPBlock(latents[i - 1], cfg.mlp_hidden, latents[i], cfg.mlp_activation,
+                          "softplus", dtype=dtype, generator=generator)
+            down = MLPBlock(latents[i], cfg.mlp_hidden, latents[i - 1], cfg.mlp_activation,
+                            "softplus", dtype=dtype, generator=generator)
+            self.add_module(f"mlp_encoder_{i}", up)
+            self.add_module(f"mlp_decoder_{i}", down)
+            self.mlp_encoders.append(up)
+            self.mlp_decoders.append(down)
+
+    # -- inference ------------------------------------------------------------
 
     def encode(self, x: torch.Tensor, n_samples: int = 1,
                generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None) -> Tuple[DistributionTuple, ...]:
-        """q(z | x) with ``n_samples`` samples attached on a leading axis."""
-        q1 = self.encoder(x)
-        z1 = q1.sample(generator, (n_samples,), noise=eps)
-        return (DistributionTuple(q1, z1, axes=_LATENT_AXES),)
+               eps: Noise = None) -> Tuple[DistributionTuple, ...]:
+        """q(z_1 | x) .. q(z_L | z_{L-1}) with samples attached."""
+        return self.sample_posterior(self.encoder(x), n_samples, generator, eps)
+
+    def sample_posterior(self, q1: Normal, n_samples: int = 1,
+                         generator: Optional[torch.Generator] = None,
+                         eps: Noise = None) -> Tuple[DistributionTuple, ...]:
+        """``encode`` from a given q(z_1 | x), which the evaluator computes
+        once per batch. Importance samples are a leading axis on z_1 and ride
+        through the upper layers, each sampled once per z_1 sample."""
+        noise = _per_layer(eps, len(self.mlp_encoders) + 1)
+        z = q1.sample(generator, (n_samples,), noise=noise[0])
+        Qs = [DistributionTuple(q1, z, axes=_LATENT_AXES)]
+        for block, layer_noise in zip(self.mlp_encoders, noise[1:]):
+            q = block(z)
+            z = q.sample(generator, noise=layer_noise)
+            Qs.append(DistributionTuple(q, z, axes=_LATENT_AXES))
+        return tuple(Qs)
 
     def posterior_at(self, x: torch.Tensor,
                      zs: Tuple[torch.Tensor, ...]) -> Tuple[DistributionTuple, ...]:
-        """q(z | x) evaluated at given latents ``zs[0]``, without sampling:
-        the DReG estimator evaluates it under detached weights at live
-        latents (``models/objective.py``)."""
-        return (DistributionTuple(self.encoder(x), zs[0], axes=_LATENT_AXES),)
+        """q(z_1 | x), q(z_2 | z_1), .. evaluated at given latents, without
+        sampling: q_i's parameters are computed from ``zs[i-1]`` and each
+        tuple carries ``zs[i]``. The DReG estimator calls it with detached
+        weights at live latents (``models/objective.py``), which keeps the
+        route z_{i-1} -> q_i's parameters alive."""
+        Qs = [DistributionTuple(self.encoder(x), zs[0], axes=_LATENT_AXES)]
+        for i, block in enumerate(self.mlp_encoders):
+            Qs.append(DistributionTuple(block(zs[i]), zs[i + 1], axes=_LATENT_AXES))
+        return tuple(Qs)
+
+    # -- generation -----------------------------------------------------------
 
     def decode(self, z1: torch.Tensor) -> DistributionTuple:
-        """p(x | z), no sample attached."""
+        """p(x | z_1), no sample attached."""
         pxz = self.decoder(z1)
         return DistributionTuple(pxz, None, axes=pxz.event_axes)
 
+    def decode_down(self, Qs: Tuple[DistributionTuple, ...]):
+        """The generative conditionals p(z_i | z_{i+1}) evaluated at the
+        inference samples, and p(x | z_1)."""
+        Ps = tuple(DistributionTuple(block(Qs[i + 1].z), None, axes=_LATENT_AXES)
+                   for i, block in enumerate(self.mlp_decoders))
+        return Ps, self.decode(Qs[0].z)
+
+    def generate(self, z_top: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> DistributionTuple:
+        """Ancestral sampling z_L -> ... -> z_1, then p(x | z_1)."""
+        z = z_top
+        for block in reversed(self.mlp_decoders):
+            z = block(z).sample(generator)
+        return self.decode(z)
+
     def forward(self, x: torch.Tensor, n_samples: Optional[int] = None,
-                generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
-        """Full forward pass: ``(Qs, Ps, pxz)``; ``Ps`` is empty at one layer."""
+                generator: Optional[torch.Generator] = None, eps: Noise = None):
+        """Full forward pass: ``(Qs, Ps, pxz)``."""
         k = self.config.n_samples if n_samples is None else n_samples
         Qs = self.encode(x, k, generator, eps)
-        return Qs, (), self.decode(Qs[0].z)
+        Ps, pxz = self.decode_down(Qs)
+        return Qs, Ps, pxz
 
 
 def prior_for(config: ModelConfig, device=None) -> Normal:
@@ -97,7 +174,20 @@ def prior_for(config: ModelConfig, device=None) -> Normal:
                   event_axes=_LATENT_AXES)
 
 
-def build_model(config: ModelConfig, generator: Optional[torch.Generator] = None) -> VAE:
-    """The model for ``config``, float32 parameters on the CPU, initialised
-    from ``generator``."""
-    return VAE(config, generator)
+def build_model(config: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> VAE:
+    """The model for ``config``, float32 parameters on ``device``.
+
+    ``device=None`` means the card: it raises when CUDA is not available and
+    never carries on on the CPU; pass ``device="cpu"`` for that. The
+    parameters are initialised from ``generator`` on the CPU, so one seed
+    gives the same weights on either, and then placed. ``create_train_state``,
+    the steps and ``evaluate_llh`` follow the model's device.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_model places the model on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to run on the CPU")
+        device = torch.device("cuda")
+    return VAE(config, generator).to(device)

@@ -1,7 +1,7 @@
 """Encoder networks: amortized inference q(z | x).
 
 Port of ``ConvSpec``, ``apply_conv_spec``, ``apply_conv_stack`` and
-``ConvEncoder`` from ``vae_mdl_tpu/nn/encoders.py``. Public tensors keep the
+``ConvEncoder`` (with its GLU stack) from ``vae_mdl_tpu/nn/encoders.py``. Public tensors keep the
 JAX layout (images ``[B, H, W, C]``); inside, convolutions run NCHW.
 
 Flax's ``padding="SAME"`` is reproduced exactly:
@@ -25,7 +25,7 @@ from torch import nn
 
 from vae_mdl_tpu_torch.distributions import Normal
 from vae_mdl_tpu_torch.distributions.continuous import softplus
-from vae_mdl_tpu_torch.nn.blocks import Dense, _activation, glorot_uniform_
+from vae_mdl_tpu_torch.nn.blocks import GLU, Dense, _activation, glorot_uniform_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +118,23 @@ def conv_stack(specs: Sequence[ConvSpec], in_features: int, module: nn.Module,
     return layers
 
 
+def glu_stack(n_glu: int, in_features: int, features: int, activation: str,
+              dtype: torch.dtype, module: nn.Module,
+              generator: Optional[torch.Generator] = None):
+    """Register ``n_glu`` :class:`GLU` blocks on ``module`` as ``glu_{i}`` (the
+    Flax names) and return them."""
+    blocks = []
+    for i in range(n_glu):
+        block = GLU(in_features, features, activation, dtype, generator)
+        module.add_module(f"glu_{i}", block)
+        blocks.append(block)
+        in_features = features
+    return blocks
+
+
 class ConvEncoder(nn.Module):
-    """Conv stack -> flatten -> Dense(2 * n_latent) -> Normal(mu, softplus).
+    """Conv stack (+ optional GLU stack) -> flatten -> Dense(2 * n_latent) ->
+    Normal(mu, softplus).
 
     The flatten runs in NHWC order, the order of the Flax ``Dense_0`` kernel's
     rows, so the weight bridge only transposes that kernel. The dense layer
@@ -128,18 +143,24 @@ class ConvEncoder(nn.Module):
 
     def __init__(self, conv_specs: Sequence[ConvSpec], image_shape: Tuple[int, int, int],
                  n_latent: int = 20, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, n_glu: int = 0,
+                 glu_features: int = 64, glu_activation: str = "relu"):
         super().__init__()
         self.dtype = dtype
         h, w, c = image_shape
         self.convs = conv_stack(conv_specs, c, self, generator=generator)
         for spec in conv_specs:
             h, w, c = -(-h // spec.stride), -(-w // spec.stride), spec.features
+        self.glus = glu_stack(n_glu, c, glu_features, glu_activation, dtype, self, generator)
+        if n_glu:
+            c = glu_features
         self.Dense_0 = Dense(h * w * c, 2 * n_latent, generator)
 
     def forward(self, x: torch.Tensor) -> Normal:
         """``x`` ``[B, H, W, C]`` -> q(z | x) over ``[B, n_latent]``."""
         h = apply_conv_stack(self.convs, x.permute(0, 3, 1, 2), self.dtype)
+        for block in self.glus:
+            h = block(h)
         flat = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).float()
         mu, logstd = torch.chunk(self.Dense_0(flat), 2, dim=-1)
         return Normal(mu, softplus(logstd), event_axes=(-1,))

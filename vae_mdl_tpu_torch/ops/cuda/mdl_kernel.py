@@ -17,13 +17,14 @@ bounds them and how they are laid out.
   for the parameters' gradient; the images' gradient, which no training
   path asks for, goes through the plain version's autograd.
 - ``mdl_backward_plain(x01, parameters, g)`` is the backward kernel's plain
-  version: the analytic gradient of the Pallas backward (``_dl_grads``,
-  ``_bwd_math``) in plain PyTorch, with its tie rules. ``mdl_backward``
-  takes it for CPU tensors and launches the kernel (``mdl_backward_cuda``)
-  for CUDA tensors.
+  version: the analytic gradient of the Pallas backward (``_bwd_math``, with
+  ``dl_kernel.dl_grads_plain`` for its ``_dl_grads``) in plain PyTorch, with
+  its tie rules. ``mdl_backward`` takes it for CPU tensors and launches the
+  kernel (``mdl_backward_cuda``) for CUDA tensors.
 - The library is built with ``nvcc`` for ``sm_90a`` at first use into
-  ``vae_mdl_tpu_torch/_build/`` (keyed by a hash of the source and flags) and
-  loaded with ``ctypes``; nothing is built or loaded at import.
+  ``vae_mdl_tpu_torch/_build/`` (``ops/cuda/build.py``: keyed by a hash of the
+  source, the shared header and the flags) and loaded with ``ctypes``; nothing
+  is built or loaded at import.
 - ``launches`` and ``backward_launches`` count the two kernels' launches;
   callers reset them to 0 and read them to show that a run went through the
   kernels.
@@ -32,74 +33,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
+from vae_mdl_tpu_torch.ops.cuda import build as _build
+from vae_mdl_tpu_torch.ops.cuda.build import BUILD_DIR  # noqa: F401  (where builds live)
+from vae_mdl_tpu_torch.ops.cuda.dl_kernel import dl_grads_plain
 
-_PACKAGE = Path(__file__).resolve().parents[2]
-SOURCE = _PACKAGE / "csrc" / "mdl_log_prob.cu"
-BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no fast math, no mul+add contraction: the kernel rounds as the plain
-    # version's elementwise ops do (see the source's header)
-    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _build.CSRC / "mdl_log_prob.cu"
 MAX_MIX = 10
-_HALF_BIN = 1.0 / 255.0  # half of the 2/255 bin on [-1, 1]
+_INTERVAL_WIDTH = 2.0 / 255.0  # 256 levels on [-1, 1]
 
 # kernel launches since the counter was last set to 0: forward, backward
 launches = 0
 backward_launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found on PATH or under CUDA_HOME; the MoDL kernels are "
-            "built from csrc/mdl_log_prob.cu with the CUDA toolkit")
-    return path
-
-
 def library_path() -> Path:
-    """Where the build of the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"mdl_log_prob-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels' library unless this exact build exists; returns
-    its path. The compiler's register/spill report goes beside it as
-    ``.log``."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """Where the build of the current source, headers and flags lives."""
+    return _build.library_path(SOURCE)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(_build.build(SOURCE)))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mdl_log_prob_forward.argtypes = [ptr] * 3 + [i32] * 2 + [i64] * 13 + [ptr]
     lib.mdl_log_prob_forward.restype = i32
@@ -180,42 +140,6 @@ def mdl_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor,
     return dp
 
 
-def _dl_grads(x, loc, logscale):
-    """d(discretized_logistic_log_prob)/d(loc, logscale) on [-1, 1] with 256
-    bins: ``_dl_grads`` of the Pallas kernel. The CDF difference's floor
-    passes no gradient (``live``); the edge conditions compare x only."""
-    inv_std = torch.exp(-logscale)
-    centered = x - loc
-    start = (centered - _HALF_BIN) * inv_std
-    stop = (centered + _HALF_BIN) * inv_std
-    sg_stop = torch.sigmoid(stop)
-    sg_start = torch.sigmoid(start)
-    diff = sg_stop - sg_start
-    prob = torch.clamp_min(diff, 1e-12)
-    live = diff > 1e-12
-    zero = x.new_zeros(())
-    ds = torch.where(live, sg_stop * (1.0 - sg_stop) / prob, zero)
-    da = torch.where(live, sg_start * (1.0 - sg_start) / prob, zero)
-    d_loc = inv_std * (da - ds)
-    d_ls = da * start - ds * stop
-
-    a = centered * inv_std
-    c_ap = 2.0 * torch.sigmoid(-a) - 1.0
-    use_log = prob > 1e-5
-    d_loc = torch.where(use_log, d_loc, -c_ap * inv_std)
-    d_ls = torch.where(use_log, d_ls, -c_ap * a - 1.0)
-
-    left = x <= -1.0
-    le = torch.sigmoid(-stop)
-    d_loc = torch.where(left, -le * inv_std, d_loc)
-    d_ls = torch.where(left, -le * stop, d_ls)
-
-    right = x >= 1.0
-    d_loc = torch.where(right, sg_start * inv_std, d_loc)
-    d_ls = torch.where(right, sg_start * start, d_ls)
-    return d_loc, d_ls
-
-
 def mdl_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """The backward kernel's plain version, ``_bwd_math`` of the Pallas
@@ -231,7 +155,7 @@ def mdl_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
       d cf_g   = gw * dL_b * x_r * (1 - tanh(cf_g)^2)
       d cf_b   = gw * dL_b * x_g * (1 - tanh(cf_b)^2)
 
-    with (dL_c, dS_c) from ``_dl_grads`` per channel. Autograd of
+    with (dL_c, dS_c) from ``dl_grads_plain`` per channel. Autograd of
     ``mixture_log_prob`` differs from this only at ties (it passes half the
     gradient where a clamp is at its bound) and in rounding.
     """
@@ -255,14 +179,15 @@ def mdl_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
         x_all = torch.cat([xr.expand(lead), xg.expand(lead), xb.expand(lead)], dim=-1)
 
         lp_all = discretized_logistic_log_prob(x_all, loc_all, ls_all,
-                                               interval_width=2.0 / 255.0)
+                                               interval_width=_INTERVAL_WIDTH)
         lp = lp_all[..., 0:n] + lp_all[..., n:2 * n] + lp_all[..., 2 * n:3 * n]
         w = lp + (logits - torch.logsumexp(logits, dim=-1, keepdim=True))
         s = torch.softmax(w, dim=-1)
         gw = g * s
         d_logits = g * (s - torch.softmax(logits, dim=-1))
 
-        dL_all, dS_all = _dl_grads(x_all, loc_all, ls_all)
+        dL_all, dS_all = dl_grads_plain(x_all, loc_all, ls_all, -1.0, 1.0,
+                                        _INTERVAL_WIDTH)
         gw3 = torch.cat([gw, gw, gw], dim=-1)
         gL_r, gL_g, gL_b = (gw3 * dL_all).split(n, dim=-1)
         dS_r, dS_g, dS_b = torch.where(ls_raw > -7.0, gw3 * dS_all,

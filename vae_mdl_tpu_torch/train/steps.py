@@ -139,10 +139,11 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
     """``(state, uint8 batch[B, H, W, C]) -> (state, metrics)``."""
     k = cfg.model.n_samples
 
-    def step(state: TrainState, batch: torch.Tensor, eps: Optional[torch.Tensor] = None):
+    def step(state: TrainState, batch: torch.Tensor, eps=None):
         """One update of ``state`` (in place) on ``batch``; ``eps``
-        ``[k, B, n_latent]`` injects the standard-normal noise in place of
-        the "sample" stream's draw."""
+        ``[k, B, n_latent]`` (or a sequence with one tensor per stochastic
+        layer) injects the standard-normal noise in place of the "sample"
+        stream's draw."""
         rngs = state.next_rngs("sample", "binarize", "flip", device=batch.device)
         x = preprocess_train(cfg, batch, rngs)
         beta = effective_beta(cfg, state.step)

@@ -3,8 +3,11 @@
 ``params_from_flax`` turns a Flax variables tree (numpy or jax leaves,
 ``{"params": {"encoder": {"conv_0": {"kernel", "bias"}, ..., "Dense_0": ...},
 "decoder": {...}}}``) into a ``state_dict`` for ``models.vae.VAE``;
-``params_to_flax`` goes back. The port names its layers as Flax does, so a
-leaf ``encoder/conv_0/kernel`` becomes ``encoder.conv_0.weight``. Per leaf:
+``params_to_flax`` goes back. The port names its layers as Flax does, at
+any depth, so a leaf ``encoder/conv_0/kernel`` becomes
+``encoder.conv_0.weight``, ``decoder/glu_2/Conv_1/kernel``
+``decoder.glu_2.Conv_1.weight`` and ``mlp_encoder_1/Dense_3/bias``
+``mlp_encoder_1.Dense_3.bias``. Per leaf:
 
 - dense kernels ``[in, out]`` are transposed to ``[out, in]``; the flatten
   and reshape around the dense layers run in NHWC order inside the modules,
@@ -35,11 +38,19 @@ from vae_mdl_tpu_torch.config import ExperimentConfig, ModelConfig
 from vae_mdl_tpu_torch.train.state import TrainState, create_train_state
 
 
-def _is_transposed(cfg: ModelConfig, part: str, name: str) -> bool:
-    if not name.startswith("conv_"):
+def _is_transposed(cfg: ModelConfig, path) -> bool:
+    """Whether the layer at ``path`` (``("decoder", "conv_1")``) is a
+    transposed conv: a ``conv_{i}`` or ``pre_{i}`` entry of the encoder's or
+    decoder's specs says so; no other layer is."""
+    if len(path) != 2 or path[0] not in ("encoder", "decoder"):
         return False
-    layers = cfg.encoder.conv_layers if part == "encoder" else cfg.decoder.conv_layers
-    return layers[int(name.split("_")[1])][3]
+    kind, _, index = path[1].partition("_")
+    part = cfg.encoder if path[0] == "encoder" else cfg.decoder
+    if kind == "conv":
+        return part.conv_layers[int(index)][3]
+    if kind == "pre" and path[0] == "decoder":
+        return part.pre_layers[int(index)][3]
+    return False
 
 
 def kernel_from_flax(kernel: np.ndarray, transposed: bool = False) -> np.ndarray:
@@ -62,14 +73,19 @@ def kernel_to_flax(weight: np.ndarray, transposed: bool = False) -> np.ndarray:
 
 def params_from_flax(variables, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Flax variables (or their ``"params"`` tree) -> torch ``state_dict``."""
-    tree = variables.get("params", variables)
     state = {}
-    for part, modules in tree.items():
-        for name, leaves in modules.items():
-            weight = kernel_from_flax(np.asarray(leaves["kernel"]),
-                                      _is_transposed(cfg, part, name))
-            state[f"{part}.{name}.weight"] = torch.from_numpy(weight)
-            state[f"{part}.{name}.bias"] = torch.from_numpy(np.array(leaves["bias"]))
+
+    def walk(node, path):
+        if "kernel" in node:
+            name = ".".join(path)
+            weight = kernel_from_flax(np.asarray(node["kernel"]), _is_transposed(cfg, path))
+            state[f"{name}.weight"] = torch.from_numpy(weight)
+            state[f"{name}.bias"] = torch.from_numpy(np.array(node["bias"]))
+        else:
+            for key, child in node.items():
+                walk(child, path + (key,))
+
+    walk(variables.get("params", variables), ())
     return state
 
 
@@ -78,11 +94,14 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor], cfg: ModelConfig) -> dic
     float arrays."""
     tree: dict = {}
     for key, value in state_dict.items():
-        part, name, leaf = key.split(".")
+        *path, leaf = key.split(".")
         array = value.detach().cpu().numpy()
         if leaf == "weight":
-            array, leaf = kernel_to_flax(array, _is_transposed(cfg, part, name)), "kernel"
-        tree.setdefault(part, {}).setdefault(name, {})[leaf] = array.copy()
+            array, leaf = kernel_to_flax(array, _is_transposed(cfg, tuple(path))), "kernel"
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = array.copy()
     return {"params": tree}
 
 
@@ -130,12 +149,17 @@ def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConf
     adam = _find_adam(jax_state.opt_state)
     port = _port_adam(cfg, state.opt_state)
     port["count"] = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device)
+
+    def placed(tree) -> Dict[str, torch.Tensor]:
+        # in the parameters' order, not the Flax tree's: the optimizer walks
+        # gradients, moments and parameters side by side
+        leaves = params_from_flax(tree, cfg.model)
+        return {name: leaves[name].to(device) for name in state.params}
+
     for moment in ("mu", "nu"):
-        port[moment] = {name: t.to(device)
-                        for name, t in params_from_flax(getattr(adam, moment), cfg.model).items()}
+        port[moment] = placed(getattr(adam, moment))
     if jax_state.ema_params is not None:
-        state.ema_params = {name: t.to(device) for name, t in
-                            params_from_flax(jax_state.ema_params, cfg.model).items()}
+        state.ema_params = placed(jax_state.ema_params)
     return state
 
 
