@@ -1,6 +1,8 @@
 """The MoDL and discretized-logistic CUDA kernels on the card: forward and
 backward against their plain versions, their input checks, their launch
-counts, and the gradient's layout; and ``build_model``'s default device.
+counts, and the gradient's layout; the probe kernel, the channel sum and the
+null-body MoDL kernels against theirs; and the default device of
+``build_model`` and the timing harness.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -13,7 +15,10 @@ float32 gradient and 2e-5 + 8e-3 |plain| for a bf16 one (one bf16 ulp is
 2^-8 of the value). The discretized-logistic kernels run the plain
 version's float32 operations one for one, without fused multiply-adds (on
 the H100 they agreed bit for bit); they are held to the same forward and
-float32 backward tolerances.
+float32 backward tolerances. The probe kernel calls the same libdevice
+functions as PyTorch's elementwise kernels (rtol 1e-5, atol 1e-6 over three
+iterations; nan meets nan); the channel sums add 50 to 100 float32 terms in
+another order (atol 1e-4); ``0.5 p + g`` is exact.
 """
 import numpy as np
 import pytest
@@ -23,7 +28,8 @@ from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
 from vae_mdl_tpu_torch.models.vae import build_model
 from vae_mdl_tpu_torch.models.zoo import MODELS
-from vae_mdl_tpu_torch.ops.cuda import dl_kernel, mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
+from vae_mdl_tpu_torch.utils.timing import setup_scanned_step
 
 pytestmark = pytest.mark.cuda
 
@@ -289,3 +295,142 @@ def test_build_model_lands_on_the_card_by_default(cuda):
     on_cpu = build_model(MODELS["model03"], torch.Generator().manual_seed(0), device="cpu")
     for a, b in zip(model.parameters(), on_cpu.parameters()):
         assert torch.equal(a.cpu(), b)  # one seed, the same weights on both
+
+
+# -- the probe kernels -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chains", sfu_probe.CHAINS)
+@pytest.mark.parametrize("op", ["none", "exp", "log", "tanh", "sigmoid", "softplus", "cascade"])
+def test_probe_kernel_matches_plain_version(cuda, op, chains):
+    x = sfu_probe.probe_input(3, chains, cuda)
+    for iters, (scale, shift) in ((0, (1.0, 0.0)), (2, (1.0, 0.0)), (3, sfu_probe.RERANGE[op])):
+        before = sfu_probe.launches
+        got = sfu_probe.loop_probe(x, op, iters, chains, scale, shift)
+        assert sfu_probe.launches == before + 1
+        want = sfu_probe.loop_probe_plain(x, op, iters, scale, shift)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "size", "chains", "op", "strides", "iters"])
+def test_probe_kernel_refuses_what_it_does_not_take(cuda, bad):
+    x = sfu_probe.probe_input(2, 4, cuda)
+    op, chains, iters = "exp", 4, 2
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "size":
+        x = x[:-1]
+    elif bad == "chains":
+        chains = 3
+    elif bad == "op":
+        op = "cosh"
+    elif bad == "strides":
+        x = x.repeat(2)[::2]
+    else:
+        iters = -1
+    before = sfu_probe.launches
+    with pytest.raises((TypeError, ValueError)):
+        sfu_probe.loop_probe(x, op, iters, chains)
+    assert sfu_probe.launches == before
+
+
+def test_measure_rates_on_the_card(cuda):
+    raw = sfu_probe.measure_raw_rates(("exp", "sigmoid"), blocks=264, repeats=2)
+    rates = sfu_probe.subtract_identity(raw)
+    assert set(rates) == {"exp", "sigmoid"}
+    assert all(r > 0 for r in raw.values()) and rates["exp"] > raw["exp"]
+    assert rates["exp"] > rates["sigmoid"]  # one special-function result against two
+
+
+@pytest.mark.parametrize("shape", [(3, 1000, 50), (1, 255, 7), (2, 513, 100)])
+@pytest.mark.parametrize("layout,path,tile", [
+    ("channel_minor", "direct", 256), ("channel_minor", "staged", 32),
+    ("channel_minor", "staged", 256), ("channel_minor", "staged", 1024),
+    ("channel_first", "direct", 256)])
+def test_channel_sum_matches_plain_version(cuda, shape, layout, path, tile):
+    rng = np.random.default_rng(shape[1])
+    params = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    if layout == "channel_first":
+        params = params.transpose(1, 2).contiguous()
+    before = io_probe.launches
+    if path == "staged" and tile * (shape[2] | 1) * 4 > io_probe.MAX_SHARED_BYTES:
+        with pytest.raises(ValueError, match="shared memory"):  # 1024 rows of 100 channels
+            io_probe.channel_sum(params, layout, path, tile)
+        assert io_probe.launches == before
+        return
+    got = io_probe.channel_sum(params, layout, path, tile)
+    assert io_probe.launches == before + 1
+    want = io_probe.channel_sum_plain(params, layout)
+    assert got.shape == want.shape == shape[:2] and got.is_contiguous()
+    assert (got - want).abs().max() <= 1e-4
+
+
+def test_channel_sum_direct_reads_through_any_strides(cuda):
+    rng = np.random.default_rng(0)
+    whole = torch.from_numpy(rng.standard_normal((3, 40, 60)).astype(np.float32)).to(cuda)
+    view = whole[:, ::2, 5:55]  # strided pixels, offset channels
+    got = io_probe.channel_sum(view, "channel_minor")
+    assert (got - view.sum(-1)).abs().max() <= 1e-4
+    with pytest.raises(ValueError, match="staged"):
+        io_probe.channel_sum(view, "channel_minor", "staged")
+    with pytest.raises(ValueError, match="tile"):
+        io_probe.channel_sum(whole, "channel_minor", "staged", tile=48)
+
+
+@pytest.mark.parametrize("n_mix", [1, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("variant", mdl_null.VARIANTS)
+def test_null_kernels_match_plain_versions(cuda, variant, nchw, dtype, n_mix):
+    """At a pixel count that is no multiple of the block (3 * 2 * 5 * 7 = 210
+    and, with k = 11, 770): the ragged tile of the staged path."""
+    for k in (3, 11):
+        x, p = _inputs(cuda, k=k, n_mix=n_mix, dtype=dtype)
+        if nchw:
+            p = _nchw(p)
+        g = _cotangent(cuda, (k, 2, 1, 1, 1), n_mix).expand(k, 2, 5, 7, 1)
+        before = mdl_null.launches, mdl_null.backward_launches
+        fwd = mdl_null.mdl_null_forward(x, p, variant)
+        bwd = mdl_null.mdl_null_backward(x, p, g, variant)
+        assert (mdl_null.launches, mdl_null.backward_launches) == (before[0] + 1, before[1] + 1)
+        want = mdl_null.mdl_null_forward_plain(x, p)
+        assert fwd.shape == want.shape == (k, 2, 5, 7, 1) and fwd.dtype == torch.float32
+        assert (fwd - want).abs().max() <= 1e-4
+        assert bwd.dtype == dtype and bwd.stride() == p.stride()
+        assert torch.equal(bwd, mdl_null.mdl_null_backward_plain(x, p, g))
+
+
+@pytest.mark.parametrize("variant", mdl_null.VARIANTS)
+def test_null_gradient_through_autograd(cuda, variant):
+    x, p = _inputs(cuda)
+    p = _nchw(p).requires_grad_(True)
+    x.requires_grad_(True)
+    out = mdl_null.mdl_null_log_prob(x, p, variant)
+    out.sum(dim=(-1, -2, -3)).sum().backward()
+    assert p.grad.stride() == p.stride()
+    assert torch.equal(p.grad, 0.5 * p.detach() + 1.0)
+    assert x.grad is not None and not x.grad.any()
+
+
+@pytest.mark.parametrize("bad", ["variant", "p_dtype", "g_shape", "x_rank"])
+def test_null_kernels_refuse_what_they_do_not_take(cuda, bad):
+    x, p = _inputs(cuda)
+    g = _cotangent(cuda, (3, 2, 5, 7, 1))
+    variant = "dma"
+    if bad == "variant":
+        variant = "transpose"
+    elif bad == "p_dtype":
+        p = p.half()
+    elif bad == "g_shape":
+        g = g[..., 0]
+    else:
+        x = x[0]
+    with pytest.raises((TypeError, ValueError)):
+        mdl_null.mdl_null_backward(x, p, g, variant)
+
+
+def test_timing_harness_lands_on_the_card_by_default(cuda):
+    step, state, batch, cfg, flops = setup_scanned_step("model01", spc=2)
+    assert batch.is_cuda and all(p.is_cuda for p in state.params.values())
+    state, metrics = step(state, batch)
+    assert state.step == 2 and np.isfinite(float(metrics["loss"])) and flops > 0

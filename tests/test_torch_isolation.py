@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax, flax nor vae_mdl_tpu, its
 CUDA-only paths (the MoDL and discretized-logistic kernels, forward and
-backward) refuse CPU tensors instead of falling back, and ``build_model``
-places the model on the card unless it is asked for the CPU."""
+backward, the probe kernel, the channel sum and the null-body kernels) refuse
+CPU tensors instead of falling back, and ``build_model``, the timing harness
+and the probes run on the card unless they are asked for the CPU."""
 import dataclasses
 import os
 import subprocess
@@ -16,7 +17,15 @@ from vae_mdl_tpu_torch.distributions import DiscretizedLogistic, MixtureDiscreti
 from vae_mdl_tpu_torch.models.vae import build_model
 from vae_mdl_tpu_torch.models.zoo import MODELS
 from vae_mdl_tpu_torch.nn.decoders import resolve_use_pallas
-from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda import (
+    build,
+    dl_kernel,
+    io_probe,
+    mdl_kernel,
+    mdl_null,
+    sfu_probe,
+)
+from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
 
 torch.set_num_threads(1)
 
@@ -29,6 +38,10 @@ names = [m.name for m in pkgutil.walk_packages(vae_mdl_tpu_torch.__path__, "vae_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vae_mdl_tpu"))
+wanted = ["ops.cuda.sfu_probe", "ops.cuda.io_probe", "ops.cuda.mdl_null", "utils.flops",
+          "utils.timing", "probes.roofline", "probes.kernel_isolate", "probes.kernel_isolate2",
+          "probes.kernel_structure"]
+bad += [w for w in wanted if "vae_mdl_tpu_torch." + w not in names]
 print(len(names), bad)
 """
 
@@ -38,7 +51,7 @@ def test_importing_every_module_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True).stdout
     n_modules, bad = out.split(maxsplit=1)
-    assert int(n_modules) >= 22  # ops.cuda.build and ops.cuda.dl_kernel among them
+    assert int(n_modules) >= 32  # the probes, utils.flops and utils.timing among them
     assert bad.strip() == "[]"
 
 
@@ -161,14 +174,70 @@ def test_build_model_without_a_device_raises_where_there_is_no_card():
 @pytest.mark.parametrize("name,what", [("model01", "MLP encoder"), ("model02", "'gaussian'"),
                                        ("digits", "'bernoulli'")])
 def test_families_still_to_port_are_refused_by_name(name, what):
-    with pytest.raises(NotImplementedError, match=what):
-        build_model(MODELS[name], device="cpu")
+    """The families this test saw refused until their parts were ported: each
+    now builds, with the part that was missing in place."""
+    model = build_model(MODELS[name], torch.Generator().manual_seed(0), device="cpu")
+    if what == "MLP encoder":
+        assert type(model.encoder).__name__ == "MLPEncoder"
+        assert type(model.decoder).__name__ == "MLPDecoder"
+    h, w, c = MODELS[name].image_shape
+    pxz = model.decode(torch.zeros(1, 1, MODELS[name].n_latent)).dist
+    expected = {"'gaussian'": "Normal", "'bernoulli'": "Bernoulli", "MLP encoder": "Bernoulli"}
+    assert type(pxz).__name__ == expected[what]
+    assert torch.isfinite(pxz.reduced_log_prob(torch.zeros(1, h, w, c))).all()
 
 
 def test_head_pad_and_unported_likelihoods_are_refused():
+    """``head_pad`` stays refused (a TPU lane-alignment experiment); "pmdl"
+    is ported now and builds; a likelihood that does not exist raises where
+    the head is built."""
     cfg = MODELS["model05"]
     padded = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, head_pad=64))
     with pytest.raises(NotImplementedError, match="head_pad"):
         build_model(padded, device="cpu")
-    with pytest.raises(NotImplementedError, match="'pmdl'"):
-        build_model(dataclasses.replace(cfg, likelihood="pmdl"), device="cpu")
+    pmdl = build_model(dataclasses.replace(cfg, likelihood="pmdl"), device="cpu")
+    pxz = pmdl.decode(torch.zeros(1, 1, cfg.n_latent)).dist
+    assert pxz.log_prob(torch.zeros(1, 32, 32, 3)).shape == (1, 1, 32, 32)
+    with pytest.raises(KeyError):
+        build_model(dataclasses.replace(cfg, likelihood="poisson"), device="cpu")
+
+
+def test_probe_kernels_refuse_cpu_tensors_and_build_nothing_at_import():
+    x, p = _inputs()
+    g = torch.ones(p.shape[:-1] + (1,))
+    before = (sfu_probe.launches, io_probe.launches, mdl_null.launches,
+              mdl_null.backward_launches)
+    for call in (lambda: sfu_probe.loop_probe_cuda(torch.ones(256), "exp", 2, chains=1),
+                 lambda: io_probe.channel_sum_cuda(torch.ones(2, 8, 5)),
+                 lambda: mdl_null.mdl_null_forward_cuda(x, p),
+                 lambda: mdl_null.mdl_null_backward_cuda(x, p, g)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            call()
+    assert before == (sfu_probe.launches, io_probe.launches, mdl_null.launches,
+                      mdl_null.backward_launches)
+    assert sfu_probe._library.cache_info().currsize == 0
+    assert io_probe.library.cache_info().currsize == 0
+    for module in (sfu_probe, io_probe):
+        assert module.SOURCE.is_file()
+        assert build.library_path(module.SOURCE).parent == build.BUILD_DIR
+    assert (build.CSRC / "mdl_addressing.cuh").is_file()
+
+
+def test_probe_wrappers_take_the_plain_versions_for_cpu_tensors():
+    x, p = _inputs()
+    g = torch.ones(p.shape[:-1] + (1,))
+    torch.testing.assert_close(sfu_probe.loop_probe(x, "tanh", 2),
+                               torch.tanh(torch.tanh(x)), rtol=0, atol=0)
+    torch.testing.assert_close(io_probe.channel_sum(p[0, 0]), p[0, 0].sum(-1), rtol=0, atol=0)
+    torch.testing.assert_close(mdl_null.mdl_null_backward(x, p, g), 0.5 * p + 1.0, rtol=0, atol=0)
+    assert (sfu_probe.launches, io_probe.launches, mdl_null.backward_launches) == (0, 0, 0)
+
+
+def test_the_probes_need_a_card():
+    """No probe carries on on the CPU when no card is found."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    for run in (roofline.run, kernel_structure.run, kernel_isolate.run, kernel_isolate2.run):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert mdl_kernel.mdl_log_prob.__module__ == mdl_kernel.__name__  # nothing left swapped

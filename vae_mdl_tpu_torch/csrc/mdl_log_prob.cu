@@ -26,7 +26,8 @@
 // gradients per train step at k = 5, B = 128.
 //
 // Design, first version (right before fast):
-// - one thread per (k, b, h, w) pixel, a grid-stride loop over all of them;
+// - one thread per (k, b, h, w) pixel, a grid-stride loop over all of them
+//   (mdl_addressing.cuh, which the null-body probes of io_probe.cu share);
 // - x is broadcast over k by indexing with b only, never materialised;
 // - parameters, the cotangent and the gradient are read and written through
 //   their own element strides, so the NHWC-contiguous view and the NCHW conv
@@ -49,11 +50,14 @@
 // Each C entry point returns cudaGetLastError() after the launch.
 
 #include "dl_cascade.cuh"
+#include "mdl_addressing.cuh"
 
 namespace {
 
 using dlc::load;
 using dlc::store;
+using mdla::grid_for;
+using mdla::kThreads;
 
 constexpr int kMaxMix = 10;
 constexpr float kHalfBin = 0.003921568859368563f;   // float32(1/255): half of the 2/255 bin
@@ -119,20 +123,13 @@ __global__ void mdl_log_prob_kernel(
   const int64_t total = K * B * H * W;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = i;
-    const int64_t w = r % W;
-    r /= W;
-    const int64_t h = r % H;
-    r /= H;
-    const int64_t b = r % B;
-    const int64_t k = r / B;
-
-    const float* xp = x + b * xs_b + h * xs_h + w * xs_w;
+    const mdla::Pixel px = mdla::pixel_of(i, B, H, W);
+    const float* xp = x + mdla::image_offset(px, xs_b, xs_h, xs_w);
     const float xr = xp[0] * 2.0f - 1.0f;
     const float xg = xp[xs_c] * 2.0f - 1.0f;
     const float xb = xp[2 * xs_c] * 2.0f - 1.0f;
 
-    const T* pp = p + k * ps_k + b * ps_b + h * ps_h + w * ps_w;
+    const T* pp = p + mdla::sample_offset(px, ps_k, ps_b, ps_h, ps_w);
     float logit[N], wt[N];
     float lmax, lsum, wmax;
     mix_weights<T, N>(pp, ps_c, xr, xg, xb, logit, lmax, lsum, wt, wmax);
@@ -161,21 +158,14 @@ __global__ void mdl_log_prob_backward_kernel(
   const int64_t total = K * B * H * W;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
        i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = i;
-    const int64_t w = r % W;
-    r /= W;
-    const int64_t h = r % H;
-    r /= H;
-    const int64_t b = r % B;
-    const int64_t k = r / B;
-
-    const float* xp = x + b * xs_b + h * xs_h + w * xs_w;
+    const mdla::Pixel px = mdla::pixel_of(i, B, H, W);
+    const float* xp = x + mdla::image_offset(px, xs_b, xs_h, xs_w);
     const float xr = xp[0] * 2.0f - 1.0f;
     const float xg = xp[xs_c] * 2.0f - 1.0f;
     const float xb = xp[2 * xs_c] * 2.0f - 1.0f;
-    const T* pp = p + k * ps_k + b * ps_b + h * ps_h + w * ps_w;
-    T* dpp = dp + k * ds_k + b * ds_b + h * ds_h + w * ds_w;
-    const float gv = g[k * gs_k + b * gs_b + h * gs_h + w * gs_w];
+    const T* pp = p + mdla::sample_offset(px, ps_k, ps_b, ps_h, ps_w);
+    T* dpp = dp + mdla::sample_offset(px, ds_k, ds_b, ds_h, ds_w);
+    const float gv = g[mdla::sample_offset(px, gs_k, gs_b, gs_h, gs_w)];
 
     // pass 1: the forward's weights
     float logit[N], wt[N];
@@ -266,13 +256,6 @@ cudaError_t launch_backward(int n_mix, dim3 grid, dim3 block, cudaStream_t strea
 }
 
 #undef MDL_SWITCH
-
-constexpr int kThreads = 256;
-
-dim3 grid_for(int64_t total) {
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  return dim3(static_cast<unsigned>(blocks < (1LL << 30) ? blocks : (1LL << 30)));
-}
 
 }  // namespace
 

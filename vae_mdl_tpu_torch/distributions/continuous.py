@@ -1,4 +1,4 @@
-"""Normal and Logistic distributions (float32 likelihood math).
+"""Normal, Logistic and Bernoulli distributions (float32 likelihood math).
 
 Port of ``vae_mdl_tpu/distributions/continuous.py``. ``sample`` draws from
 an explicit ``torch.Generator``; ``noise=`` injects the standard draw
@@ -75,3 +75,26 @@ class Logistic(Distribution):
                                generator=generator, device=self.loc.device,
                                dtype=self.loc.dtype).clamp_min_(tiny)
         return self.loc + self.scale * (torch.log(noise) - torch.log1p(-noise))
+
+
+@dataclasses.dataclass
+class Bernoulli(Distribution):
+    logits: torch.Tensor
+    event_axes: Tuple[int, ...] = (-1, -2, -3)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        # x * logits - softplus(logits): the stable cross-entropy form
+        return x * self.logits - softplus(self.logits)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               sample_shape: Tuple[int, ...] = (),
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """1.0 where u < sigmoid(logits), u ~ U[0, 1) from ``generator``
+        unless ``noise`` gives the uniforms."""
+        if noise is None:
+            noise = torch.rand(tuple(sample_shape) + tuple(self.logits.shape),
+                               generator=generator, device=self.logits.device)
+        return (noise < torch.sigmoid(self.logits)).float()
+
+    def mean(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)

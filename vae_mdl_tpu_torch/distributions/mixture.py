@@ -1,8 +1,10 @@
 """Mixture of discretized logistics over RGB pixels, PixelCNN++ style.
 
 Port of ``vae_mdl_tpu/distributions/mixture.py`` (``split_mixture_params``,
-``autoregressive_locs``, ``mixture_log_prob``, ``MixtureDiscretizedLogistic``).
-The green/blue locations are conditioned on the observed red/green values.
+``autoregressive_locs``, ``mixture_log_prob``, ``MixtureDiscretizedLogistic``,
+``PixelMixtureDiscretizedLogistic``). In the first the green/blue locations
+are conditioned on the observed red/green values; the second ("pmdl") folds
+the autoregression into the locations and has no kernel in either package.
 
 Parameter layout per pixel, ``n_mix * 10`` channels:
   [n_mix mixture logits | 3 x (n_mix locs, n_mix logscales, n_mix coeffs)]
@@ -149,3 +151,62 @@ class MixtureDiscretizedLogistic(Distribution):
         onehot = torch.nn.functional.one_hot(choice, self.n_mix).to(auto.dtype)
         selected = torch.sum(auto * onehot[..., None, :], dim=-1)
         return selected * 0.5 + 0.5
+
+
+@dataclasses.dataclass
+class PixelMixtureDiscretizedLogistic(Distribution):
+    """Loc-conditioned MoDL: nothing depends on the observed x, so
+    ``log_prob`` needs no autoregression on data and sampling is not
+    sequential. ``log_prob`` takes x in [0, 1] and returns per-pixel values
+    ``[..., h, w]`` without a channel axis: ``event_axes=(-1, -2)``."""
+
+    parameters: torch.Tensor
+    low: float = -1.0
+    high: float = 1.0
+    levels: float = 256.0
+    event_axes: Tuple[int, ...] = (-1, -2)
+
+    @property
+    def n_mix(self) -> int:
+        return self.parameters.shape[-1] // 10
+
+    def _params(self):
+        """The autoregression folded into the locations themselves."""
+        loc, logscale, coeffs, mix_logits = split_mixture_params(self.parameters)
+        loc_r = loc[..., 0, :]
+        loc_g = loc[..., 1, :] + coeffs[..., 0, :] * loc_r
+        loc_b = loc[..., 2, :] + coeffs[..., 1, :] * loc_r + coeffs[..., 2, :] * loc_g
+        return torch.stack([loc_r, loc_g, loc_b], dim=-2), logscale, mix_logits
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        x = x * 2.0 - 1.0
+        loc, logscale, mix_logits = self._params()
+        interval_width = (self.high - self.low) / (self.levels - 1.0)
+        sub_pixel_lp = discretized_logistic_log_prob(
+            x[..., None], loc, logscale,
+            low=self.low, high=self.high, interval_width=interval_width,
+        )
+        weighted = torch.sum(sub_pixel_lp, dim=-2) + log_prob_from_logits(mix_logits)
+        return torch.logsumexp(weighted, dim=-1)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               sample_shape: Tuple[int, ...] = (),
+               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """Clipped logistic draws, then one mixture component per pixel
+        (Gumbel-max). ``noise=(u_logistic, u_gumbel)`` injects the uniforms,
+        shaped ``sample_shape + [..., 3, n_mix]`` and ``sample_shape +
+        [..., n_mix]``. Returns values in [0, 1]."""
+        loc, logscale, mix_logits = self._params()
+        u_logistic, u_gumbel = noise if noise is not None else (None, None)
+        ls = Logistic(loc, torch.exp(logscale)).sample(generator, sample_shape,
+                                                       noise=u_logistic)
+        ls = torch.clamp(ls, self.low, self.high)  # [..., 3, n_mix]
+        if u_gumbel is None:
+            shape = tuple(sample_shape) + tuple(mix_logits.shape)
+            u_gumbel = torch.rand(shape, generator=generator,
+                                  device=mix_logits.device).clamp_min_(
+                                      torch.finfo(torch.float32).tiny)
+        choice = torch.argmax(mix_logits - torch.log(-torch.log(u_gumbel)), dim=-1)
+        onehot = torch.nn.functional.one_hot(choice, self.n_mix).to(ls.dtype)
+        selected = torch.sum(ls * onehot[..., None, :], dim=-1)
+        return (selected + 1.0) / 2.0

@@ -1,8 +1,8 @@
 """The VAE/IWAE model family as one configurable module.
 
 Port of ``VAE``, ``prior_for`` and ``build_model`` from
-``vae_mdl_tpu/models/vae.py`` for the conv families with the "mdl" and "dl"
-heads (model03 - model06):
+``vae_mdl_tpu/models/vae.py`` for model01 - model06 (MLP and conv encoders and
+decoders, every likelihood head):
 
 - one stochastic layer: encoder -> q(z|x), k importance samples as a leading
   axis, decoder -> p(x|z) with the configured likelihood head;
@@ -28,8 +28,8 @@ from torch import nn
 from vae_mdl_tpu_torch.config import ModelConfig
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
 from vae_mdl_tpu_torch.nn.blocks import DTYPES, MLPBlock
-from vae_mdl_tpu_torch.nn.decoders import ConvDecoder
-from vae_mdl_tpu_torch.nn.encoders import ConvEncoder, ConvSpec
+from vae_mdl_tpu_torch.nn.decoders import ConvDecoder, MLPDecoder
+from vae_mdl_tpu_torch.nn.encoders import ConvEncoder, ConvSpec, MLPEncoder
 
 _LATENT_AXES = (-1,)
 
@@ -60,34 +60,38 @@ class VAE(nn.Module):
     def __init__(self, config: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
-        missing = [what for what, ok in (
-            ("the MLP encoder (model01)", cfg.encoder.kind == "conv"),
-            ("the MLP decoder (model01)", cfg.decoder.kind == "conv"),
-            ("DecoderConfig.head_pad, a TPU lane-alignment experiment",
-             not cfg.decoder.head_pad),
-            (f"the {cfg.likelihood!r} likelihood", cfg.likelihood in ("mdl", "dl")),
-        ) if not ok]
-        if missing:
+        if cfg.decoder.head_pad:
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the conv families with the 'mdl' and "
-                f"'dl' heads; not ported yet: {', '.join(missing)} (ROADMAP.md Queue 1)")
+                f"{cfg.name}: DecoderConfig.head_pad, a TPU lane-alignment experiment, "
+                "is not ported (ROADMAP.md, left out on purpose)")
         self.config = cfg
         dtype = DTYPES[cfg.compute_dtype]
         latents = cfg.latents()
-        self.encoder = ConvEncoder(
-            _specs(cfg.encoder.conv_layers), cfg.image_shape, latents[0], dtype, generator,
-            n_glu=cfg.encoder.n_glu, glu_features=cfg.encoder.glu_features,
-            glu_activation=cfg.encoder.glu_activation)
-        self.decoder = ConvDecoder(
-            _specs(cfg.decoder.conv_layers), latents[0],
-            base_size=cfg.decoder.base_size, out_shape=cfg.image_shape,
-            fc_activation=cfg.decoder.fc_activation, likelihood=cfg.likelihood,
-            n_mix=cfg.n_mix, bound_logstd=cfg.bound_logstd,
-            use_pallas=cfg.use_pallas, likelihood_io_dtype=cfg.likelihood_io_dtype,
-            dtype=dtype, generator=generator,
-            pre_specs=_specs(cfg.decoder.pre_layers), n_glu=cfg.decoder.n_glu,
-            glu_features=cfg.decoder.glu_features,
-            glu_activation=cfg.decoder.glu_activation)
+        if cfg.encoder.kind == "mlp":
+            self.encoder = MLPEncoder(
+                cfg.image_shape, cfg.encoder.n_hidden, latents[0], cfg.encoder.activation,
+                cfg.encoder.std_transform, dtype, generator)
+        else:
+            self.encoder = ConvEncoder(
+                _specs(cfg.encoder.conv_layers), cfg.image_shape, latents[0], dtype, generator,
+                n_glu=cfg.encoder.n_glu, glu_features=cfg.encoder.glu_features,
+                glu_activation=cfg.encoder.glu_activation)
+        if cfg.decoder.kind == "mlp":
+            self.decoder = MLPDecoder(
+                latents[0], cfg.image_shape, cfg.decoder.n_hidden, cfg.decoder.activation,
+                cfg.likelihood, cfg.n_mix, cfg.bound_logstd, cfg.use_pallas,
+                cfg.likelihood_io_dtype, dtype, generator)
+        else:
+            self.decoder = ConvDecoder(
+                _specs(cfg.decoder.conv_layers), latents[0],
+                base_size=cfg.decoder.base_size, out_shape=cfg.image_shape,
+                fc_activation=cfg.decoder.fc_activation, likelihood=cfg.likelihood,
+                n_mix=cfg.n_mix, bound_logstd=cfg.bound_logstd,
+                use_pallas=cfg.use_pallas, likelihood_io_dtype=cfg.likelihood_io_dtype,
+                dtype=dtype, generator=generator,
+                pre_specs=_specs(cfg.decoder.pre_layers), n_glu=cfg.decoder.n_glu,
+                glu_features=cfg.decoder.glu_features,
+                glu_activation=cfg.decoder.glu_activation)
 
         # stochastic layers 2..L: inference (up) and generative (down) MLPs
         self.mlp_encoders, self.mlp_decoders = [], []

@@ -1,10 +1,11 @@
 """Decoder networks: observation model p(x | z) with its likelihood head.
 
-Port of ``resolve_use_pallas``, ``make_observation``, ``head_channels`` and
-``ConvDecoder`` (with ``pre_specs`` and the GLU stack) from
-``vae_mdl_tpu/nn/decoders.py``, for the "mdl" head (model05) and the "dl" head
-(model03, model04, model06). The Bernoulli, Gaussian and "pmdl" heads and
-the MLP decoder come with model01 and model02.
+Port of ``resolve_use_pallas``, ``make_observation``, ``head_channels``,
+``MLPDecoder`` and ``ConvDecoder`` (with ``pre_specs``, the GLU stack and the
+standalone ``head`` conv) from ``vae_mdl_tpu/nn/decoders.py``. Likelihood
+heads: "bernoulli" (model01), "gaussian" (model02), "dl" (model03, model04,
+model06), "mdl" (model05) and "pmdl". All heads emit float32 parameters; the
+body may run in bf16.
 """
 from __future__ import annotations
 
@@ -14,8 +15,14 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from vae_mdl_tpu_torch.distributions import DiscretizedLogistic, MixtureDiscretizedLogistic
-from vae_mdl_tpu_torch.nn.blocks import DTYPES, Dense, _activation, merge_leading
+from vae_mdl_tpu_torch.distributions import (
+    Bernoulli,
+    DiscretizedLogistic,
+    MixtureDiscretizedLogistic,
+    Normal,
+    PixelMixtureDiscretizedLogistic,
+)
+from vae_mdl_tpu_torch.nn.blocks import DTYPES, Dense, _activation, _Conv3x3, merge_leading
 from vae_mdl_tpu_torch.nn.encoders import (
     ConvSpec,
     apply_conv_spec,
@@ -24,7 +31,8 @@ from vae_mdl_tpu_torch.nn.encoders import (
     glu_stack,
 )
 
-Obs = Union[DiscretizedLogistic, MixtureDiscretizedLogistic]
+Obs = Union[Bernoulli, Normal, DiscretizedLogistic, MixtureDiscretizedLogistic,
+            PixelMixtureDiscretizedLogistic]
 
 _IMAGE_AXES = (-1, -2, -3)
 _KERNEL_LIKELIHOODS = ("mdl", "dl")
@@ -49,6 +57,13 @@ def make_observation(out: torch.Tensor, likelihood: str, bound_logstd: bool = Fa
     (mdl only); the likelihood math stays float32 either way."""
     use_pallas = resolve_use_pallas(use_pallas, likelihood, operand=out)
     out = out.float()
+    if likelihood == "bernoulli":
+        return Bernoulli(out, event_axes=_IMAGE_AXES)
+    if likelihood == "gaussian":
+        mu, logstd = torch.chunk(out, 2, dim=-1)
+        if bound_logstd:
+            logstd = torch.tanh(logstd)
+        return Normal(mu, torch.exp(logstd), event_axes=_IMAGE_AXES)
     if likelihood == "dl":
         # the two halves of the head's channels, as views of its output
         mu, logstd = torch.chunk(out, 2, dim=-1)
@@ -60,8 +75,10 @@ def make_observation(out: torch.Tensor, likelihood: str, bound_logstd: bool = Fa
         if io_dtype is not None:
             out = out.to(DTYPES[io_dtype])
         return MixtureDiscretizedLogistic(out, event_axes=_IMAGE_AXES, use_pallas=use_pallas)
-    raise NotImplementedError(
-        f"likelihood {likelihood!r} is not ported yet (ROADMAP.md Queue 1)")
+    if likelihood == "pmdl":
+        # log_prob is per pixel, without a channel axis: event axes (-1, -2)
+        return PixelMixtureDiscretizedLogistic(out, event_axes=(-1, -2))
+    raise ValueError(f"unknown likelihood {likelihood!r}")
 
 
 def head_channels(likelihood: str, out_channels: int, n_mix: int) -> int:
@@ -74,16 +91,57 @@ def head_channels(likelihood: str, out_channels: int, n_mix: int) -> int:
     }[likelihood]
 
 
+class MLPDecoder(nn.Module):
+    """Dense stack -> reshape to the image -> likelihood head (Bernoulli by
+    default). ``Dense_0`` and ``Dense_1`` run at the compute dtype, the
+    output layer ``out`` in float32; its bias is what
+    ``train.state.init_output_bias`` sets."""
+
+    def __init__(self, n_latent: int, out_shape: Tuple[int, int, int] = (28, 28, 1),
+                 n_hidden: int = 200, activation: str = "tanh",
+                 likelihood: str = "bernoulli", n_mix: int = 5, bound_logstd: bool = False,
+                 use_pallas: Optional[bool] = None,
+                 likelihood_io_dtype: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h, w, c = out_shape
+        self.image = (h, w, head_channels(likelihood, c, n_mix))
+        self.likelihood = likelihood
+        self.bound_logstd = bound_logstd
+        self.use_pallas = use_pallas
+        self.likelihood_io_dtype = likelihood_io_dtype
+        self.dtype = dtype
+        self.act = _activation(activation)
+        self.Dense_0 = Dense(n_latent, n_hidden, generator)
+        self.Dense_1 = Dense(n_hidden, n_hidden, generator)
+        self.out = Dense(n_hidden, math.prod(self.image), generator)
+
+    def forward(self, z: torch.Tensor) -> Obs:
+        h = self.act(self.Dense_0(z, self.dtype))
+        h = self.act(self.Dense_1(h, self.dtype))
+        out = self.out(h.float()).reshape(tuple(z.shape[:-1]) + self.image)
+        return make_observation(out, self.likelihood, self.bound_logstd, self.use_pallas,
+                                self.likelihood_io_dtype)
+
+
 class ConvDecoder(nn.Module):
     """Dense -> reshape to the base grid -> (convs + GLU stack) -> transposed
     convs -> head.
 
     The dense output is read as NHWC ``base_size``, the layout of the Flax
-    ``Dense_0`` kernel's columns. The last conv spec is the likelihood head
-    (the zoo folds it into ``conv_layers``; in model04 it is a transposed
-    conv): the body runs at the compute dtype and the head in float32. The
-    head's NCHW output is handed on as an ``[..., H, W, C]`` view, with no
-    copy; the likelihood kernels read it through its strides.
+    ``Dense_0`` kernel's columns. Where the last conv spec has the
+    likelihood's channels it is the head (the zoo folds it into
+    ``conv_layers``; in model04 it is a transposed conv): the body runs at
+    the compute dtype and that layer in float32. Otherwise the whole stack
+    runs at the compute dtype and a standalone 3x3 SAME conv ``head`` follows
+    in float32 (model05 with ``likelihood="dl"``: 50 channels, then a head of
+    6). The head's ``[N, C, H, W]`` output is handed on as an
+    ``[..., H, W, C]`` view, with no copy; the likelihood kernels read it
+    through its strides. On a card that memory is channels-last: the NHWC
+    grid viewed as NCHW is a channels-last tensor, and cuDNN keeps a
+    channels-last input's format through the stack, so the view is
+    NHWC-contiguous there.
     """
 
     def __init__(self, conv_specs: Sequence[ConvSpec], n_latent: int,
@@ -115,10 +173,11 @@ class ConvDecoder(nn.Module):
             features = glu_features
         self.convs = conv_stack(conv_specs, features, self, generator=generator)
         n_head = head_channels(likelihood, out_shape[-1], n_mix)
-        if not conv_specs or conv_specs[-1].features != n_head:
-            raise NotImplementedError(
-                "a separate 'head' conv after the stack is not ported yet; "
-                "the zoo folds the head into conv_layers")
+        self.folded_head = bool(conv_specs) and conv_specs[-1].features == n_head
+        if not self.folded_head:
+            if conv_specs:
+                features = conv_specs[-1].features
+            self.head = _Conv3x3(features, n_head, generator)
 
     def forward(self, z: torch.Tensor) -> Obs:
         h = self.act(self.Dense_0(z, self.dtype))
@@ -126,8 +185,11 @@ class ConvDecoder(nn.Module):
         out = apply_conv_stack(self.pre, merged.permute(0, 3, 1, 2), self.dtype)
         for block in self.glus:
             out = block(out)
-        out = apply_conv_stack(self.convs[:-1], out, self.dtype)
-        out = apply_conv_spec(self.convs[-1], out.float(), torch.float32)
+        if self.folded_head:
+            out = apply_conv_stack(self.convs[:-1], out, self.dtype)
+            out = apply_conv_spec(self.convs[-1], out.float(), torch.float32)
+        else:
+            out = self.head(apply_conv_stack(self.convs, out, self.dtype).float(), torch.float32)
         return make_observation(unmerge(out.permute(0, 2, 3, 1)), self.likelihood,
                                 self.bound_logstd, self.use_pallas,
                                 self.likelihood_io_dtype)

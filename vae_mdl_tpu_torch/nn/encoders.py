@@ -1,8 +1,10 @@
 """Encoder networks: amortized inference q(z | x).
 
-Port of ``ConvSpec``, ``apply_conv_spec``, ``apply_conv_stack`` and
-``ConvEncoder`` (with its GLU stack) from ``vae_mdl_tpu/nn/encoders.py``. Public tensors keep the
-JAX layout (images ``[B, H, W, C]``); inside, convolutions run NCHW.
+Port of ``ConvSpec``, ``apply_conv_spec``, ``apply_conv_stack``,
+``MLPEncoder`` and ``ConvEncoder`` (with its GLU stack) from
+``vae_mdl_tpu/nn/encoders.py``. Public tensors keep the JAX layout (images
+``[B, H, W, C]``); inside, convolutions take ``[B, C, H, W]`` views of that
+NHWC data, which is channels-last memory.
 
 Flax's ``padding="SAME"`` is reproduced exactly:
 - a conv pads ``total = max((ceil(n/s) - 1) * s + k - n, 0)`` with the
@@ -25,7 +27,7 @@ from torch import nn
 
 from vae_mdl_tpu_torch.distributions import Normal
 from vae_mdl_tpu_torch.distributions.continuous import softplus
-from vae_mdl_tpu_torch.nn.blocks import GLU, Dense, _activation, glorot_uniform_
+from vae_mdl_tpu_torch.nn.blocks import GLU, Dense, MLPBlock, _activation, glorot_uniform_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +132,24 @@ def glu_stack(n_glu: int, in_features: int, features: int, activation: str,
         blocks.append(block)
         in_features = features
     return blocks
+
+
+class MLPEncoder(nn.Module):
+    """Flatten the image -> ``MLPBlock`` -> Normal over the latent. The
+    block is registered as ``MLPBlock_0``, its Flax name."""
+
+    def __init__(self, image_shape: Tuple[int, int, int], n_hidden: int = 200,
+                 n_latent: int = 100, activation: str = "tanh", std_transform: str = "exp",
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h, w, c = image_shape
+        self.MLPBlock_0 = MLPBlock(h * w * c, n_hidden, n_latent, activation, std_transform,
+                                   dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> Normal:
+        """``x`` ``[..., H, W, C]`` -> q(z | x) over ``[..., n_latent]``."""
+        return self.MLPBlock_0(x.reshape(tuple(x.shape[:-3]) + (-1,)))
 
 
 class ConvEncoder(nn.Module):

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
@@ -81,3 +82,26 @@ def build_all(sources: Sequence[Path]) -> List[Path]:
 def build(source: Path) -> Path:
     """``build_all`` for one source."""
     return build_all([source])[0]
+
+
+def mufu_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
+    """``{mangled kernel name: {MUFU kind: instructions}}`` from the SASS of
+    a built library (``cuobjdump -sass``): the special-function instructions
+    in each kernel's listing, every branch included. None where the toolkit
+    has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        beside_nvcc = Path(_nvcc()).with_name("cuobjdump")
+        if not beside_nvcc.exists():
+            return None
+        tool = str(beside_nvcc)
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    for section in sass.split("Function : ")[1:]:
+        name, _, body = section.partition("\n")
+        kinds: Dict[str, int] = {}
+        for kind in re.findall(r"\bMUFU\.(\w+)", body):
+            kinds[kind] = kinds.get(kind, 0) + 1
+        counts[name.strip()] = kinds
+    return counts

@@ -311,3 +311,24 @@ def eval_params(cfg: TrainConfig, state: TrainState) -> Params:
     if cfg.ema_decay > 0 and state.ema_params is not None:
         return state.ema_params
     return state.params
+
+
+def init_output_bias(state: TrainState, train_mean: torch.Tensor) -> TrainState:
+    """Set the MLP decoder's output bias to the logits of the training mean,
+    in place: ``train_mean`` is the per-pixel mean of the (binarized)
+    training images in [0, 1], clamped to [0.001, 0.999] as the reference
+    does. The EMA copy, where there is one, gets the same values in its own
+    buffer."""
+    targets = [name for name in state.params
+               if name.endswith(".bias") and "out" in name.split(".")]
+    if not targets:
+        raise ValueError("no decoder output bias ('out'/'bias') found in params")
+    name = targets[0]
+    bias = state.params[name]
+    p = torch.clamp(torch.as_tensor(train_mean).reshape(-1), 0.001, 0.999)
+    logits = (torch.log(p) - torch.log1p(-p)).to(device=bias.device, dtype=bias.dtype)
+    with torch.no_grad():
+        bias.copy_(logits)
+    if state.ema_params is not None:
+        state.ema_params = {**state.ema_params, name: logits.clone()}
+    return state
