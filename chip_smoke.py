@@ -37,11 +37,20 @@ and nothing falls back to a plain version.
    channels-last) and the NCHW layout, with kernel and plain times from
    CUDA events;
 5. the MoDL backward kernel at the three backward contracts (f32 and bf16 at
-   k = 5, bf16 at k = 100; batch 128), both layouts: against the analytic
-   plain version element by element, and against autograd of the plain
-   forward by the float64-accuracy rule; CUDA-event times of the backward
-   alone (kernel vs plain) and of forward + backward (through the kernels vs
-   autograd of the plain version);
+   k = 5, bf16 at k = 100; batch 128) on both memory paths: the tile path on
+   NHWC (what ``backward_path`` picks there), the direct path on NCHW, and
+   the direct path forced on NHWC, which is the first version of the kernel
+   and the other side of the A/B: each against the analytic plain version
+   element by element, the two NHWC results against each other bit for bit,
+   and the path taken against autograd of the plain forward by the
+   float64-accuracy rule; CUDA-event times of the backward alone, on NHWC
+   taken in turns (direct, tiled, tiled, direct), with the blocks an SM
+   holds of the tile path, and of forward + backward (through the kernels vs
+   autograd of the plain version); then, on either
+   dtype, a ragged case (k = 3, B = 7, 31 x 31: 20,181 pixels, no multiple of
+   the 128-pixel tile), a view one element off a 16-byte boundary (must take
+   the direct path and agree, and be refused on the tile path) and a
+   cotangent expanded with zero strides on the tile path;
 6. the discretized-logistic (DL) forward kernel against its plain version at
    the model's train shape (k = 5, batch 128, 32x32x3) and eval-chunk shape
    (k = 100), x broadcast over k, for contiguous operands and for the two
@@ -57,7 +66,11 @@ and nothing falls back to a plain version.
    stated at ``SUM_ATOL``; timed in phase 10c), and the null-body MoDL kernels (P3), forward and
    backward, direct and staged, at the model05 train shape (k = 5) and
    eval-chunk shape (k = 100), f32 and bf16, both layouts, against their
-   plain versions (the sums within tolerance, ``0.5 p + g`` exactly);
+   plain versions (the sums within tolerance, ``0.5 p + g`` exactly); the
+   staged backward takes the MoDL backward's tile path on NHWC and its
+   direct path on NCHW, and the two variants' backward times are taken in
+   turns (dma, staged, staged, dma); the ragged and the misaligned case as
+   in phase 5;
 8. model05 and model03, float32 config, batch 128, k = 5: the IWAE bound
    through the kernel (``use_pallas=None``) and through the plain version
    (``use_pallas=False``) on the same weights and noise;
@@ -76,11 +89,13 @@ and nothing falls back to a plain version.
    through ``make_multi_train_step`` with 10 steps per call on seeded
    synthetic uint8 images, in both configs through the kernels and in
    float32 through the plain version: the median imgs/s of 5 timed calls
-   after a warm-up, the peak memory, and a finite loss that falls; (c) the
+   after a warm-up, the peak memory, and a finite loss that falls; every
+   MoDL backward of model05's training must have taken the tile path; (c) the
    rest of the measurement path on model05, batch 128, k = 5, f32, through
    ``utils/timing.py``: ``probes.kernel_structure`` (the four-way step:
-   the null kernels must launch in ``dma`` and ``staged``, the DL pair in
-   ``dl_head``, the MoDL pair in ``full``, and no other) and
+   the null kernels must launch in ``dma`` (backward on the direct path) and
+   ``staged`` (on the tile path), the DL pair in ``dl_head``, the MoDL pair
+   in ``full`` (backward on the tile path), and no other) and
    ``probes.kernel_isolate`` / ``kernel_isolate2``;
 11. a ``torch.profiler`` breakdown of device time by kernel class over 5
    train steps of each config of model05 and model03, with each kernel's
@@ -104,7 +119,11 @@ which another instruction sequence could beat. ``library_ms`` is the
 time of the one PyTorch call that computes the same function where there is
 one (``sum`` for the channel sums, ``torch.add(g, p, alpha=0.5)`` for the
 null backward), else null: no single PyTorch call computes a discretized
-logistic's or a MoDL's log-prob or its gradient. The MoDL backward's
+logistic's or a MoDL's log-prob or its gradient. The two kernels with a
+tile path carry ``path`` (the memory path of the timed case), ``ms_direct``
+(the direct path on the same operands, which is the first version of the
+kernel, timed in turns with ``ms``) and ``blocks_per_sm`` (the tile path's
+blocks an SM, as the occupancy query sizes its grid). The MoDL backward's
 ``max_abs_err`` is over its float32 contract; ``max_abs_err_bf16`` (one bf16
 ulp of gradients of a few hundred) is over the bf16 ones, and
 ``tolerance_excess``, the largest |kernel - plain| less its per-element
@@ -137,6 +156,7 @@ from vae_mdl_tpu_torch.utils.flops import (
     cascade_transcendentals,
     device_peaks,
     MUFU_PER_CALL,
+    mdl_cuda_sass_ex2,
     mdl_cuda_transcendentals,
     modl_branch_counts,
     mufu_instructions,
@@ -320,7 +340,8 @@ def phase_build() -> None:
             if "Compiling entry function" in line and want in line:
                 mangled = line.split("'")[1]
                 if family in ("MoDL n_mix=5", "DL"):
-                    entry = "backward" if "backward_kernel" in line else "forward"
+                    entry = ("backward, tile path" if "kernel_tiled" in line else
+                             "backward, direct path" if "backward_kernel" in line else "forward")
                     dtype = "" if family == "DL" else (" bf16" if "bfloat16" in line else " f32")
                     what = f"{family}{dtype} {entry}"
                 else:  # the kernel's name and template arguments, unmangled by eye
@@ -367,6 +388,7 @@ def roofline_path(smi: str) -> dict:
     say(f"roofline main path: kernel launches {counts}")
     _only(counts, ("sfu_probe", "mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob",
                    "dl_log_prob_backward"), "the roofline")
+    _took(mdl_kernel.backward_launches_by_path, "tiled", "the roofline's MoDL backward")
     for value in (*roof["rates"].values(), roof["additive"]["measured"],
                   *(f["cuda"] for f in roof["floors"].values())):
         if not np.isfinite(value) or value <= 0:
@@ -386,9 +408,15 @@ def roofline_path(smi: str) -> dict:
     modl = build.mufu_counts(build.library_path(mdl_kernel.SOURCE)) or {}
     for kernel, kinds in modl.items():
         if "Li5E" in kernel and "IfL" in kernel:  # float32, n_mix = 5
-            entry = "backward" if "backward_kernel" in kernel else "forward"
-            say(f"SASS MoDL f32 n_mix=5 {entry}: MUFU instructions {kinds} "
-                f"(every branch of every cascade counted once)")
+            backward = "backward_kernel" in kernel
+            path = "tiled" if "kernel_tiled" in kernel else "direct"
+            entry = f"backward, {path} path" if backward else "forward"
+            counted = mdl_cuda_sass_ex2(N_MIX, backward, path)
+            say(f"SASS MoDL f32 n_mix=5 {entry}: MUFU instructions {kinds} (every branch of "
+                f"every cascade counted once); the census counts {counted} EX2")
+            if kinds.get("EX2") != counted:
+                raise AssertionError(f"the SASS of the MoDL {entry} holds {kinds.get('EX2')} "
+                                     f"MUFU.EX2, the census of utils/flops.py {counted}")
     return counts
 
 
@@ -419,15 +447,16 @@ def _nchw(p: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
 
 
-def modl_inputs(k: int, dtype: torch.dtype, nchw: bool, gen: torch.Generator):
-    """x ``[B, 32, 32, 3]`` with 0 and 255 in it; MoDL parameters hitting
+def modl_inputs(k: int, dtype: torch.dtype, nchw: bool, gen: torch.Generator,
+                batch: int = BATCH, side: int = 32):
+    """x ``[B, side, side, 3]`` with 0 and 255 in it; MoDL parameters hitting
     every branch: logscales below the -7 clamp, far-off locations (the PDF *
     width approximation), edge bins."""
     dev = gen.device
-    x = torch.randint(0, 256, (BATCH, 32, 32, 3), generator=gen, device=dev).float() / 255.0
+    x = torch.randint(0, 256, (batch, side, side, 3), generator=gen, device=dev).float() / 255.0
     x[:, 0, :, :] = 0.0
     x[:, -1, :, :] = 1.0
-    sub = (k, BATCH, 32, 32, N_MIX)
+    sub = (k, batch, side, side, N_MIX)
 
     def normal(mean, std):
         return torch.randn(sub, generator=gen, device=dev) * std + mean
@@ -504,6 +533,56 @@ def _at_ties(p):
     return tie
 
 
+def misaligned_copy(p: torch.Tensor) -> torch.Tensor:
+    """A dense copy of ``p`` that starts one element past a 16-byte boundary."""
+    flat = torch.empty(p.numel() + 16, device=p.device, dtype=p.dtype)
+    lead = (-flat.data_ptr() % 16) // flat.element_size() + 1
+    view = flat[lead:lead + p.numel()].view(p.shape)
+    view.copy_(p)
+    return view
+
+
+def in_turns(fns: dict, order, reps: int) -> dict:
+    """Mean ``cuda_ms`` of each function over its turns in ``order``."""
+    taken: dict = {name: [] for name in fns}
+    for name in order:
+        taken[name].append(cuda_ms(fns[name], reps))
+    return {name: float(np.mean(ms)) for name, ms in taken.items()}
+
+
+def backward_excess(name: str, got, want, p) -> tuple:
+    """(max |kernel - plain|, the largest excess over the per-element
+    tolerance); fails on a gradient of another dtype, shape or layout, on a
+    non-finite one and on an excess above 0."""
+    if got.dtype != p.dtype or got.shape != p.shape or got.stride() != p.stride():
+        raise AssertionError(f"{name}: gradient {got.dtype} {tuple(got.stride())}, "
+                             f"parameters {p.dtype} {tuple(p.stride())}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = (got.float() - want.float()).abs()
+    excess = float((err - (BWD_ATOL + BWD_RTOL[p.dtype] * want.float().abs())).max())
+    if excess > 0:
+        raise AssertionError(f"{name}: backward kernel and plain version differ beyond "
+                             f"tolerance (excess {excess:.3e})")
+    return float(err.max()), excess
+
+
+def refuses(launch) -> bool:
+    """Whether ``launch()`` raises the wrapper's error for a refused launch
+    (here: the tile path asked for on operands that do not fit it)."""
+    try:
+        launch()
+    except RuntimeError as err:
+        return "CUDA error" in str(err)
+    return False
+
+
+def expect_path(name: str, p: torch.Tensor, want: str) -> None:
+    got = mdl_kernel.backward_path(p, torch.empty_like(p))
+    if got != want:
+        raise AssertionError(f"{name}: backward_path chose {got}, not {want}")
+
+
 def phase_backward():
     """-> ({dtype: max |kernel - plain|}, the largest excess over the
     per-element tolerance (at most 0), {case: record})."""
@@ -516,18 +595,25 @@ def phase_backward():
             name = f"{contract} {dtype_name(dtype)} k={k} B={BATCH} {layout}"
             x, p = modl_inputs(k, dtype, nchw, gen)
             g = torch.randn((k, BATCH, 32, 32, 1), generator=gen, device="cuda")
+            path = "direct" if nchw else "tiled"
+            expect_path(name, p, path)
+            before = dict(mdl_kernel.backward_launches_by_path)
             got = mdl_kernel.mdl_backward(x, p, g)
+            if mdl_kernel.backward_launches_by_path[path] != before[path] + 1:
+                raise AssertionError(f"{name}: the wrapper did not count a {path} launch")
             want = mdl_kernel.mdl_backward_plain(x, p, g)
             torch.cuda.synchronize()
-            if got.dtype != p.dtype or got.shape != p.shape or got.stride() != p.stride():
-                raise AssertionError(f"{name}: gradient {got.dtype} {tuple(got.stride())}, "
-                                     f"parameters {p.dtype} {tuple(p.stride())}")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: non-finite gradient")
-            err = (got.float() - want.float()).abs()
-            excess = float((err - (BWD_ATOL + BWD_RTOL[dtype] * want.float().abs())).max())
-            max_err = float(err.max())
-            del want, err
+            max_err, excess = backward_excess(name, got, want, p)
+            equal = None
+            if not nchw:  # the first version of the kernel on the same operands
+                direct = mdl_kernel.mdl_backward(x, p, g, path="direct")
+                torch.cuda.synchronize()
+                direct_err, direct_excess = backward_excess(f"{name}, direct path forced",
+                                                            direct, want, p)
+                max_err, excess = max(max_err, direct_err), max(excess, direct_excess)
+                equal = bool(torch.equal(got, direct))
+                del direct
+            del want
 
             # the float64-accuracy rule, on at most 10 samples of k
             ks = slice(0, min(k, 10))
@@ -550,31 +636,76 @@ def phase_backward():
                 return torch.autograd.grad(mixture_log_prob(x, leaf.float()), leaf, g)
 
             reps = 3 if k > 5 else 10
-            ms = cuda_ms(lambda: mdl_kernel.mdl_backward(x, p, g), 20)
+            if nchw:
+                ms, ms_direct = cuda_ms(lambda: mdl_kernel.mdl_backward(x, p, g), 20), None
+            else:
+                turns = in_turns({"tiled": lambda: mdl_kernel.mdl_backward(x, p, g),
+                                  "direct": lambda: mdl_kernel.mdl_backward(x, p, g, path="direct")},
+                                 ("direct", "tiled", "tiled", "direct"), 20)
+                ms, ms_direct = turns["tiled"], turns["direct"]
+                blocks = mdl_kernel.tile_blocks_per_sm(dtype, N_MIX)
             plain_ms = cuda_ms(lambda: mdl_kernel.mdl_backward_plain(x, p, g), reps)
             fb_ms = cuda_ms(fwd_bwd_kernel, 20)
             fb_plain_ms = cuda_ms(fwd_bwd_plain, reps)
             counts = modl_branch_counts(x, p)
-            calls = mdl_cuda_transcendentals(counts, g.numel(), N_MIX, backward=True)
+            calls = mdl_cuda_transcendentals(counts, g.numel(), N_MIX, backward=True, path=path)
             bound_ms, bound_by, by = bound(
                 distinct_bytes(x, p, g, got), modl_ops(counts, g.numel(), N_MIX, backward=True),
                 calls)
-            say(f"backward {name}: max|d|={max_err:.3e} (tolerance excess {excess:.3e}); "
-                f"rms vs f64 kernel {rms_kernel:.3e} autograd {rms_ref:.3e} "
-                f"({int((~keep).sum())} ties left out); backward kernel {ms:.4f} ms, "
+            ab = ("" if nchw else f" at {blocks} blocks an SM (direct path on the same "
+                  f"operands, in turns: {ms_direct:.4f} ms; the two paths bit-equal: {equal})")
+            say(f"backward {name}, {path} path: max|d|={max_err:.3e} (tolerance excess "
+                f"{excess:.3e}); rms vs f64 kernel {rms_kernel:.3e} autograd {rms_ref:.3e} "
+                f"({int((~keep).sum())} ties left out); backward kernel {ms:.4f} ms{ab}, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                 f"{bounds_text(by)}); attainable at the measured rates {attainable(calls):.4f} ms; "
                 f"fwd+bwd kernels {fb_ms:.4f} ms, autograd of plain {fb_plain_ms:.4f} ms")
-            if excess > 0:
-                raise AssertionError(f"{name}: backward kernel and plain version differ beyond tolerance")
             if rms_kernel > F64_RATIO * rms_ref + 1e-9:
                 raise AssertionError(f"{name}: backward kernel less accurate than autograd")
             key = dtype_name(dtype)
             worst[key] = max(worst.get(key, 0.0), max_err)
             worst_excess = max(worst_excess, excess)
-            cases[name] = dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            cases[name] = dict(shape=name, path=path, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, bounds=by, attainable_ms=attainable(calls))
+            if not nchw:
+                cases[name].update(ms_direct=ms_direct, bit_equal_to_direct=equal,
+                                   blocks_per_sm=blocks)
             del x, p, g, got
+    torch.cuda.empty_cache()
+
+    # off the contracts' shapes: a ragged last tile, a misaligned view, an
+    # expanded cotangent (k = 3, B = 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"{dtype_name(dtype)} k=3 B=7"
+        x, p = modl_inputs(3, dtype, False, gen, batch=7, side=31)
+        g = torch.randn((3, 7, 31, 31, 1), generator=gen, device="cuda")
+        wide = torch.randn((3, 7, 1, 1, 1), generator=gen, device="cuda").expand(3, 7, 31, 31, 1)
+        pixels = g.numel()
+        if pixels % mdl_kernel.TILE_PIXELS == 0:
+            raise AssertionError(f"{pixels} pixels are whole tiles: no ragged case")
+        expect_path(f"ragged {tag}", p, "tiled")
+        for what, cot in (("ragged", g), ("expanded cotangent", wide)):
+            got = mdl_kernel.mdl_backward(x, p, cot)
+            want = mdl_kernel.mdl_backward_plain(x, p, cot)
+            max_err, excess = backward_excess(f"{what} {tag}", got, want, p)
+            equal = bool(torch.equal(got, mdl_kernel.mdl_backward(x, p, cot, path="direct")))
+            say(f"backward {what} {tag} 31x31 ({pixels} pixels, strides of g {cot.stride()}), "
+                f"tile path: max|d|={max_err:.3e} (tolerance excess {excess:.3e}); equal to "
+                f"the direct path bit for bit: {equal}")
+            worst_excess = max(worst_excess, excess)
+        off = misaligned_copy(p)
+        expect_path(f"misaligned {tag}", off, "direct")
+        got = mdl_kernel.mdl_backward(x, off, g)
+        want = mdl_kernel.mdl_backward_plain(x, off, g)
+        max_err, excess = backward_excess(f"misaligned {tag}", got, want, off)
+        refused = refuses(lambda: mdl_kernel.mdl_backward(x, off, g, path="tiled"))
+        say(f"backward misaligned {tag} (address % 16 = {off.data_ptr() % 16}), direct path: "
+            f"max|d|={max_err:.3e} (tolerance excess {excess:.3e}); the tile path refuses it: "
+            f"{refused}")
+        if not refused:
+            raise AssertionError(f"misaligned {tag}: the tile path took operands that do not fit")
+        worst_excess = max(worst_excess, excess)
+        del x, p, g, wide, off, got, want
     torch.cuda.empty_cache()
     return worst, worst_excess, cases
 
@@ -792,11 +923,21 @@ def phase_io_probes():
                 fwd_want = mdl_null.mdl_null_forward_plain(x, p)
                 bwd_want = mdl_null.mdl_null_backward_plain(x, p, g)
                 layout = "nchw" if nchw else "nhwc"
+                # the staged backward has the MoDL backward's dispatch
+                paths = {"dma": "direct", "staged": "direct" if nchw else "tiled"}
+                # the two variants' backwards in turns, in one stretch
+                bwd_ms = in_turns(
+                    {variant: (lambda v=variant: mdl_null.mdl_null_backward(x, p, g, v))
+                     for variant in mdl_null.VARIANTS}, ("dma", "staged", "staged", "dma"), 10)
                 for variant in mdl_null.VARIANTS:
                     tag = f"{variant} {dtype_name(dtype)} k={k} B={BATCH} {layout}"
+                    before = dict(mdl_null.backward_launches_by_path)
                     fwd = mdl_null.mdl_null_forward(x, p, variant)
                     bwd = mdl_null.mdl_null_backward(x, p, g, variant)
                     torch.cuda.synchronize()
+                    path = paths[variant]
+                    if mdl_null.backward_launches_by_path[path] != before[path] + 1:
+                        raise AssertionError(f"P3 backward {tag}: no {path} launch counted")
                     err = float((fwd - fwd_want).abs().max())
                     if fwd.shape != fwd_want.shape or err > SUM_ATOL:
                         raise AssertionError(f"P3 forward {tag}: max|d|={err:.3e}")
@@ -804,27 +945,50 @@ def phase_io_probes():
                             or not torch.equal(bwd, bwd_want):
                         raise AssertionError(f"P3 backward {tag}: not equal to 0.5 p + g")
                     fwd_ms = cuda_ms(lambda: mdl_null.mdl_null_forward(x, p, variant), 10)
-                    bwd_ms = cuda_ms(lambda: mdl_null.mdl_null_backward(x, p, g, variant), 10)
                     fwd_plain = cuda_ms(lambda: mdl_null.mdl_null_forward_plain(x, p), 3)
                     bwd_plain = cuda_ms(lambda: mdl_null.mdl_null_backward_plain(x, p, g), 3)
                     fb, fby, _ = bound(distinct_bytes(x, p, fwd), fwd.numel() * (10 * N_MIX + 3))
                     bb, bby, _ = bound(distinct_bytes(x, p, g, bwd), 2 * p.numel())
+                    blocks = mdl_null.tile_blocks_per_sm(dtype, N_MIX) if path == "tiled" else None
+                    at_blocks = f", {blocks} blocks an SM" if blocks else ""
                     library_ms = None
                     if dtype == torch.float32:  # one call, the same function
                         library_ms = cuda_ms(lambda: torch.add(g, p, alpha=0.5), 5)
                     say(f"kernel P3 {tag}: forward max|d|={err:.3e} (atol {SUM_ATOL}), "
                         f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound {fb:.4f} ms ({fby}); "
-                        f"backward equal, {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, library "
+                        f"backward ({path} path{at_blocks}) equal, {bwd_ms[variant]:.4f} ms (dma, staged, "
+                        f"staged, dma in turns), plain {bwd_plain:.4f} ms, library "
                         f"{'%.4f ms' % library_ms if library_ms else 'none'}, bound {bb:.4f} ms "
                         f"({bby})")
                     records[f"P3 forward {tag}"] = dict(
                         max_abs_err=err, shape=f"P3 forward {tag}", ms=fwd_ms, plain_ms=fwd_plain,
                         bound_ms=fb, bound_by=fby, library_ms=None)
                     records[f"P3 backward {tag}"] = dict(
-                        max_abs_err=0.0, shape=f"P3 backward {tag}", ms=bwd_ms,
-                        plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, library_ms=library_ms)
+                        max_abs_err=0.0, shape=f"P3 backward {tag}", path=path,
+                        ms=bwd_ms[variant], plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
+                        library_ms=library_ms)
+                    if path == "tiled":
+                        records[f"P3 backward {tag}"].update(blocks_per_sm=blocks)
                 del x, p, g, fwd, bwd, fwd_want, bwd_want
         torch.cuda.empty_cache()
+
+    # off the main shapes: a ragged last tile on the tile path, and a view one
+    # element off a 16-byte boundary, which staged must take directly
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.rand((7, 31, 31, 3), generator=gen, device="cuda")
+        p = torch.randn((3, 7, 31, 31, 10 * N_MIX), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((3, 7, 31, 31, 1), generator=gen, device="cuda")
+        for what, params, path in (("ragged", p, "tiled"),
+                                   ("misaligned", misaligned_copy(p), "direct")):
+            before = dict(mdl_null.backward_launches_by_path)
+            bwd = mdl_null.mdl_null_backward(x, params, g, "staged")
+            torch.cuda.synchronize()
+            if mdl_null.backward_launches_by_path[path] != before[path] + 1:
+                raise AssertionError(f"P3 backward {what}: staged did not take the {path} path")
+            if not torch.equal(bwd, mdl_null.mdl_null_backward_plain(x, params, g)):
+                raise AssertionError(f"P3 backward {what} {dtype_name(dtype)}: not 0.5 p + g")
+            say(f"kernel P3 backward staged {what} {dtype_name(dtype)} k=3 B=7 31x31 "
+                f"({g.numel()} pixels), {path} path: equal to 0.5 p + g")
     return records
 
 
@@ -881,6 +1045,13 @@ def _only(counts: dict, wanted, what: str) -> None:
             raise AssertionError(f"{what} launched {kernel} {n} times")
 
 
+def _took(by_path: dict, path: str, what: str) -> None:
+    """Fail unless every launch counted in ``by_path`` took ``path``."""
+    others = {other: n for other, n in by_path.items() if other != path and n}
+    if by_path[path] < 1 or others:
+        raise AssertionError(f"{what} took {by_path}, not the {path} path alone")
+
+
 def structure_path(smi: str):
     """This slice's main path, second part: the four-way step and the
     memory-path probes on model05, batch 128, k = 5, f32, each with every
@@ -898,6 +1069,11 @@ def structure_path(smi: str):
         counts = {**structure["steps"][label]["launches"]}
         _only(counts, kernels, f"the {label} step")
         by_path[f"kernel_structure {label}"] = counts
+    paths = {label: structure["steps"][label]["backward_paths"] for label in wanted}
+    _took(paths["full"]["mdl_log_prob_backward"], "tiled", "the full step's MoDL backward")
+    _took(paths["staged"]["mdl_null_backward"], "tiled", "the staged step's null backward")
+    _took(paths["dma"]["mdl_null_backward"], "direct", "the dma step's null backward")
+    say(f"kernel_structure backward launches by memory path: {paths}")
     if mdl_kernel.mdl_log_prob.__module__ != mdl_kernel.__name__:
         raise AssertionError("the MoDL likelihood was not put back after the probe")
 
@@ -1192,6 +1368,10 @@ def main_path(name: str, path: str, smi: str) -> dict:
     own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
     _only(counts, [own] + ([f"{own}_backward"] if path == "train" else []),
           f"the {name} {path} path")
+    if own == "mdl_log_prob" and path == "train":
+        by_memory_path = mdl_kernel.backward_launches_by_path
+        say(f"{name} train main path: MoDL backward launches by memory path {by_memory_path}")
+        _took(by_memory_path, "tiled", f"the {name} train path's MoDL backward")
     return counts
 
 
@@ -1233,9 +1413,14 @@ def main() -> None:
 
     def null_record(direction, variant):
         case = io_cases[f"P3 {direction} {variant} float32 k=5 B={BATCH} {modl}"]
-        return record(f"mdl_null_{direction}[{variant}]", IO_SOURCE, REPLACES_P3,
-                      case["max_abs_err"], case, counter=f"mdl_null_{direction}",
-                      paths=(f"kernel_structure {variant}",))
+        kernel = f"mdl_null_{direction}[{variant}]"
+        more = {}
+        if case.get("path") == "tiled":  # the direct variant on the same operands, in turns
+            more = dict(
+                ms_direct=io_cases[f"P3 backward dma float32 k=5 B={BATCH} {modl}"]["ms"])
+        return record(kernel, IO_SOURCE, REPLACES_P3, case["max_abs_err"], case,
+                      counter=f"mdl_null_{direction}", paths=(f"kernel_structure {variant}",),
+                      **more)
 
     def sum_record(kernel, replaces, case, timed, library):
         """A channel sum's entry: checked in phase_io_probes, timed by the

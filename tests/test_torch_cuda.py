@@ -12,7 +12,9 @@ Tolerances, as in chip_smoke.py (same float32 formulas and libdevice
 functions, sums in another order): forward per pixel |kernel - plain| <=
 2e-4 + 1e-5 |plain|; backward per element <= 2e-5 + 2e-4 |plain| for a
 float32 gradient and 2e-5 + 8e-3 |plain| for a bf16 one (one bf16 ulp is
-2^-8 of the value). The discretized-logistic kernels run the plain
+2^-8 of the value). The MoDL backward's two memory paths run the same float32
+operations in the same order and are held to each other exactly. The
+discretized-logistic kernels run the plain
 version's float32 operations one for one, without fused multiply-adds (on
 the H100 they agreed bit for bit); they are held to the same forward and
 float32 backward tolerances. The probe kernel calls the same libdevice
@@ -155,6 +157,116 @@ def test_backward_refuses_what_it_does_not_take(cuda, bad):
         p = p[..., :45]
     with pytest.raises((TypeError, ValueError)):
         mdl_kernel.mdl_backward(x, p, g)
+
+
+# (k, B, H, W): one full and one ragged tile; many tiles a block with a ragged
+# last one (649,605 pixels: 5,076 tiles of 128 over the card's persistent blocks)
+_TILE_SHAPES = [(3, 2, 5, 7), (5, 127, 31, 33)]
+
+
+def _misaligned_like(p):
+    """A dense copy of ``p`` one element past a 16-byte boundary."""
+    flat = torch.empty(p.numel() + 16, device=p.device, dtype=p.dtype)
+    lead = (-flat.data_ptr() % 16) // flat.element_size() + 1
+    view = flat[lead:lead + p.numel()].view(p.shape)
+    view.copy_(p)
+    return view
+
+
+@pytest.mark.parametrize("n_mix", [1, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_backward_paths_agree_bit_for_bit(cuda, shape, dtype, n_mix):
+    """Channel-minor operands take the tile path; forced onto the direct one
+    they give the same bits, and agree with the plain version. The cotangent is the one the sum over the image's axes
+    expands."""
+    k, b, h, w = shape
+    x, p = _inputs(cuda, k=k, b=b, h=h, w=w, n_mix=n_mix, dtype=dtype)
+    g = _cotangent(cuda, (k, b, 1, 1, 1), n_mix).expand(k, b, h, w, 1)
+    assert mdl_kernel.backward_path(p, torch.empty_like(p)) == "tiled"
+    before = dict(mdl_kernel.backward_launches_by_path)
+    tiled = mdl_kernel.mdl_backward(x, p, g)
+    direct = mdl_kernel.mdl_backward(x, p, g, path="direct")
+    torch.cuda.synchronize()
+    assert mdl_kernel.backward_launches_by_path == {"tiled": before["tiled"] + 1,
+                                                    "direct": before["direct"] + 1}
+    assert tiled.stride() == direct.stride() == p.stride()
+    assert torch.equal(tiled, direct)
+    assert 1 <= mdl_kernel.tile_blocks_per_sm(dtype, n_mix) <= 16
+    want = mdl_kernel.mdl_backward_plain(x, p, g)
+    err = (tiled.float() - want.float()).abs()
+    assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nchw", "misaligned", "sliced"])
+def test_backward_takes_the_direct_path_off_the_tile_layout(cuda, layout, dtype):
+    """NCHW strides, a view one element off a 16-byte boundary and a channel
+    slice take the direct path and agree with the plain version; asked for
+    the tile path they are refused, and nothing is launched."""
+    x, p = _inputs(cuda, dtype=dtype)
+    if layout == "nchw":
+        p = _nchw(p)
+    elif layout == "misaligned":
+        p = _misaligned_like(p)
+    else:
+        wide = torch.zeros((3, 2, 5, 7, 60), device=cuda, dtype=dtype)
+        wide[..., :50] = p
+        p = wide[..., :50]
+    g = _cotangent(cuda, (3, 2, 5, 7, 1))
+    assert mdl_kernel.backward_path(p, torch.empty_like(p)) == "direct"
+    before = dict(mdl_kernel.backward_launches_by_path)
+    got = mdl_kernel.mdl_backward(x, p, g)
+    assert mdl_kernel.backward_launches_by_path == {**before, "direct": before["direct"] + 1}
+    want = mdl_kernel.mdl_backward_plain(x, p, g)
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+    if layout != "sliced":  # a slice's gradient buffer is dense: only the parameters misfit
+        assert got.stride() == p.stride()
+    with pytest.raises(RuntimeError, match="tiled path"):
+        mdl_kernel.mdl_backward(x, p, g, path="tiled")
+    assert mdl_kernel.backward_launches_by_path == {**before, "direct": before["direct"] + 1}
+    # the null twin has the same dispatch: staged is the direct path here
+    before = dict(mdl_null.backward_launches_by_path)
+    null = mdl_null.mdl_null_backward(x, p, g, "staged")
+    assert mdl_null.backward_launches_by_path == {**before, "direct": before["direct"] + 1}
+    assert torch.equal(null, mdl_null.mdl_null_backward_plain(x, p, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_layout_gradient_goes_through_the_tile_path(cuda, dtype):
+    """Through autograd on the layout the model hands on: a conv output in
+    channels-last memory viewed as ``[k, B, H, W, C]``."""
+    x, p = _inputs(cuda, dtype=dtype)
+    head = p.reshape(6, 5, 7, 50).permute(0, 3, 1, 2)  # NCHW shape, channels-last memory
+    assert head.is_contiguous(memory_format=torch.channels_last)
+    leaf = head.detach().requires_grad_(True)
+    view = leaf.reshape(3, 2, 50, 5, 7).permute(0, 1, 3, 4, 2)
+    before = dict(mdl_kernel.backward_launches_by_path)
+    mdl_kernel.mdl_log_prob(x, view).sum(dim=(-1, -2, -3)).sum().backward()
+    assert mdl_kernel.backward_launches_by_path == {**before, "tiled": before["tiled"] + 1}
+    want = mdl_kernel.mdl_backward_plain(x, p, torch.ones(3, 2, 5, 7, 1, device=cuda))
+    got = leaf.grad.permute(0, 2, 3, 1).reshape(3, 2, 5, 7, 50)
+    err = (got.float() - want.float()).abs()
+    assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("n_mix", [1, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_null_backward_on_the_tile_path_is_exact(cuda, shape, dtype, n_mix):
+    k, b, h, w = shape
+    x, p = _inputs(cuda, k=k, b=b, h=h, w=w, n_mix=n_mix, dtype=dtype)
+    g = _cotangent(cuda, (k, b, 1, 1, 1), n_mix).expand(k, b, h, w, 1)
+    before = dict(mdl_null.backward_launches_by_path)
+    staged = mdl_null.mdl_null_backward(x, p, g, "staged")
+    dma = mdl_null.mdl_null_backward(x, p, g, "dma")
+    torch.cuda.synchronize()
+    assert mdl_null.backward_launches_by_path == {"tiled": before["tiled"] + 1,
+                                                  "direct": before["direct"] + 1}
+    want = mdl_null.mdl_null_backward_plain(x, p, g)
+    assert torch.equal(staged, want) and torch.equal(dma, want)
+    assert 1 <= mdl_null.tile_blocks_per_sm(dtype, n_mix) <= 16
 
 
 # -- the discretized-logistic kernels ------------------------------------------------

@@ -87,4 +87,43 @@ __device__ __forceinline__ DLGrad dl_grads(float x, float loc, float logscale, c
   return {-c_ap * inv_std, -c_ap * a - 1.0f};
 }
 
+// dl_log_prob and dl_grads in one sweep: the value and both derivatives from
+// the sub-expressions the two share (inv_std, start, stop, the two sigmoids,
+// prob, a), each product and sum in the order the two functions above take
+// it, so every field equals what they return, bit for bit. An edge bin costs
+// an exp, a softplus and a sigmoid; the CDF-difference branch an exp, two
+// sigmoids and a log; the PDF branch an exp, three sigmoids and a softplus.
+struct DLValueGrad {
+  float lp, d_loc, d_ls;
+};
+
+__device__ __forceinline__ DLValueGrad dl_value_and_grads(float x, float loc, float logscale,
+                                                          const Bin bin) {
+  const float centered = x - loc;
+  const float inv_std = expf(-logscale);
+  const float start = (centered - bin.half_bin) * inv_std;
+  const float stop = (centered + bin.half_bin) * inv_std;
+  if (x >= bin.high) {  // right edge bin
+    const float ri = sigmoid(start);
+    return {-softplus(start), ri * inv_std, ri * start};
+  }
+  if (x <= bin.low) {  // left edge bin
+    const float le = sigmoid(-stop);
+    return {stop - softplus(stop), -le * inv_std, -le * stop};
+  }
+  const float sg_stop = sigmoid(stop);
+  const float sg_start = sigmoid(start);
+  const float prob = fmaxf(sg_stop - sg_start, 1e-12f);
+  if (prob > 1e-5f) {  // log(prob)
+    const float ds = sg_stop * (1.0f - sg_stop) / prob;
+    const float da = sg_start * (1.0f - sg_start) / prob;
+    return {logf(prob), inv_std * (da - ds), da * start - ds * stop};
+  }
+  // the CDF difference underflows: PDF * bin width
+  const float a = centered * inv_std;
+  const float c_ap = 2.0f * sigmoid(-a) - 1.0f;
+  return {-a - logscale - 2.0f * softplus(-a) + bin.log_width, -c_ap * inv_std,
+          -c_ap * a - 1.0f};
+}
+
 }  // namespace dlc

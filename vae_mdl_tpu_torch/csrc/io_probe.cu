@@ -20,25 +20,38 @@
 //
 // Design. The TPU probes compare a tile read as it lies with a tile
 // transposed in fast memory; the block sizes they sweep are that memory's
-// tiling. Here the two bodies are two memory paths:
+// tiling. Here the bodies are memory paths:
 // - direct: a thread walks its pixel's channels straight from device memory
-//   through the channel stride, as the MoDL kernels do. On a channel-minor
-//   layout neighbouring threads are C elements apart (uncoalesced, saved by
-//   the caches as far as they reach); on a channel-first layout they are
-//   neighbours (coalesced);
-// - staged: a block's tile of pixels goes through shared memory. Threads
-//   load it in the order the memory lies (coalesced in either layout), each
-//   pixel's row padded to an odd length so that a thread reading its own row
-//   meets no bank conflict, and a thread then sums or rewrites its row there;
-//   the null backward writes its tile back the same way.
-// The null kernels take the MoDL kernels' grid (one thread per pixel, 256 a
-// block); x is read in both, in the backward through a predicate that is
-// never true for x in [0, 1], so the read stays and the result is exact.
+//   through the channel stride, as the MoDL forward and the MoDL backward's
+//   direct path do. On a channel-minor layout neighbouring threads are C
+//   elements apart (uncoalesced: the caches save a read as far as they
+//   reach, a write they do not, so the direct null backward is slow there by
+//   construction; it is the control whose distance from the staged one is
+//   the staging term); on a channel-first layout they are neighbours
+//   (coalesced);
+// - staged, channel sum and null forward: a block's tile of pixels goes
+//   through shared memory. Threads load it in the order the memory lies
+//   (coalesced in either layout), each pixel's row padded to an odd length so
+//   that a thread reading its own row meets no bank conflict, and a thread
+//   then sums its row there;
+// - staged, null backward: the MoDL backward's own memory path and dispatch.
+//   Dense channel-minor operands on 16-byte aligned addresses take the tile
+//   path of mdl_tile.cuh (persistent blocks, the tile in by a bulk
+//   asynchronous copy on an mbarrier, the result written over it in shared
+//   memory and out by one bulk store), with the null body
+//   in place of the gradient math; any other layout takes the direct path,
+//   as the MoDL backward does. The header is shared, so the twin cannot
+//   drift from the kernel it mirrors.
+// The null kernels off the tile path take the MoDL kernels' grid (one thread
+// per pixel, 256 a block); x is read in all of them, in the backward through
+// a predicate that is never true for x in [0, 1], so the read stays and the
+// result is exact.
 //
 // Each C entry point returns cudaGetLastError() after the launch.
 
 #include "dl_cascade.cuh"
 #include "mdl_addressing.cuh"
+#include "mdl_tile.cuh"
 
 namespace {
 
@@ -134,31 +147,29 @@ __global__ void mdl_null_backward_kernel(
   }
 }
 
-// -- null-body MoDL kernels, staged through shared memory ------------------------
+// -- null-body MoDL forward, staged through shared memory -------------------------
 
 // Shared memory of a staged block: the element offsets of its kThreads pixels
-// in the parameters and in the gradient, then the tile [kThreads, padded(C)].
+// in the parameters, then the tile [kThreads, padded(C)].
 template <typename T>
 struct Staging {
   int64_t* p_base;
-  int64_t* d_base;
   T* tile;
   __device__ explicit Staging(unsigned char* smem)
       : p_base(reinterpret_cast<int64_t*>(smem)),
-        d_base(p_base + kThreads),
-        tile(reinterpret_cast<T*>(d_base + kThreads)) {}
+        tile(reinterpret_cast<T*>(p_base + kThreads)) {}
 };
 
 size_t staging_bytes(int C, size_t element) {
-  return 2 * kThreads * sizeof(int64_t) + static_cast<size_t>(kThreads) * padded(C) * element;
+  return kThreads * sizeof(int64_t) + static_cast<size_t>(kThreads) * padded(C) * element;
 }
 
-// Move n pixels' C channels between device memory (element offset base[r] +
-// c * s_c) and the tile, walking device memory in the order it lies:
+// Bring n pixels' C channels from device memory (element offset base[r] +
+// c * s_c) into the tile, walking device memory in the order it lies:
 // channels fastest where the channel stride is the smaller, pixels fastest
 // otherwise.
-template <typename T, bool kToTile>
-__device__ __forceinline__ void move_tile(T* mem, const int64_t* base, int64_t s_c,
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* mem, const int64_t* base, int64_t s_c,
                                           bool channel_minor, T* tile, int n, int C) {
   const int CP = padded(C);
   for (int e = threadIdx.x; e < n * C; e += kThreads) {
@@ -170,11 +181,7 @@ __device__ __forceinline__ void move_tile(T* mem, const int64_t* base, int64_t s
       c = e / n;
       r = e - c * n;
     }
-    if (kToTile) {
-      tile[r * CP + c] = mem[base[r] + c * s_c];
-    } else {
-      mem[base[r] + c * s_c] = tile[r * CP + c];
-    }
+    tile[r * CP + c] = mem[base[r] + c * s_c];
   }
 }
 
@@ -198,7 +205,7 @@ __global__ void mdl_null_forward_staged_kernel(
       st.p_base[threadIdx.x] = mdla::sample_offset(px, ps_k, ps_b, ps_h, ps_w);
     }
     __syncthreads();
-    move_tile<T, true>(const_cast<T*>(p), st.p_base, ps_c, ps_c < ps_w, st.tile, n, C);
+    load_tile<T>(p, st.p_base, ps_c, ps_c < ps_w, st.tile, n, C);
     __syncthreads();
     if (mine) {
       const float* xp = x + mdla::image_offset(px, xs_b, xs_h, xs_w);
@@ -212,43 +219,24 @@ __global__ void mdl_null_forward_staged_kernel(
   }
 }
 
+// -- null-body MoDL backward on the tile path ---------------------------------------
+
+// The body in place of the gradient math: 0.5 p + g over the pixel's row.
 template <typename T>
-__global__ void mdl_null_backward_staged_kernel(
-    const float* __restrict__ x, const T* __restrict__ p, const float* __restrict__ g,
-    T* __restrict__ dp, int C, int64_t K, int64_t B, int64_t H, int64_t W,
-    int64_t xs_b, int64_t xs_h, int64_t xs_w, int64_t xs_c,
-    int64_t ps_k, int64_t ps_b, int64_t ps_h, int64_t ps_w, int64_t ps_c,
-    int64_t gs_k, int64_t gs_b, int64_t gs_h, int64_t gs_w,
-    int64_t ds_k, int64_t ds_b, int64_t ds_h, int64_t ds_w, int64_t ds_c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Staging<T> st(smem);
-  const int CP = padded(C);
-  const int64_t total = K * B * H * W;
-  for (int64_t i0 = blockIdx.x * (int64_t)kThreads; i0 < total;
-       i0 += (int64_t)gridDim.x * kThreads) {
-    const int n = static_cast<int>(total - i0 < kThreads ? total - i0 : kThreads);
-    const bool mine = threadIdx.x < n;
-    mdla::Pixel px{0, 0, 0, 0};
-    if (mine) {
-      px = mdla::pixel_of(i0 + threadIdx.x, B, H, W);
-      st.p_base[threadIdx.x] = mdla::sample_offset(px, ps_k, ps_b, ps_h, ps_w);
-      st.d_base[threadIdx.x] = mdla::sample_offset(px, ds_k, ds_b, ds_h, ds_w);
-    }
-    __syncthreads();
-    move_tile<T, true>(const_cast<T*>(p), st.p_base, ps_c, ps_c < ps_w, st.tile, n, C);
-    __syncthreads();
-    if (mine) {
-      const float* xp = x + mdla::image_offset(px, xs_b, xs_h, xs_w);
-      const float xsum = xp[0] + xp[xs_c] + xp[2 * xs_c];
-      float gv = g[mdla::sample_offset(px, gs_k, gs_b, gs_h, gs_w)];
-      if (xsum < 0.0f) gv = 0.0f;  // never for x in [0, 1]: keeps the read of x
-      T* row = st.tile + threadIdx.x * CP;
-      for (int c = 0; c < C; ++c) store(row + c, load(row + c) * 0.5f + gv);
-    }
-    __syncthreads();
-    move_tile<T, false>(dp, st.d_base, ds_c, ds_c < ds_w, st.tile, n, C);
-    __syncthreads();
+struct NullBackward {
+  int C;
+  __device__ __forceinline__ void operator()(T* row, float*, float x0, float x1, float x2,
+                                             float gv) const {
+    if (x0 + x1 + x2 < 0.0f) gv = 0.0f;  // never for x in [0, 1]: keeps the read of x
+    for (int c = 0; c < C; ++c) store(row + c, load(row + c) * 0.5f + gv);
   }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(mdlt::kTilePixels)
+    mdl_null_backward_tiled_kernel(const mdlt::Operands<T> a) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  mdlt::for_each_tile<T, false>(a, tile_smem, NullBackward<T>{a.C});
 }
 
 // Opt the kernel in to `bytes` of dynamic shared memory (above 48 KB a kernel
@@ -283,26 +271,16 @@ cudaError_t launch_null_forward(int staged, int C, dim3 grid, cudaStream_t s, co
 }
 
 template <typename T>
-cudaError_t launch_null_backward(int staged, int C, dim3 grid, cudaStream_t s, const float* x,
-                                 const T* p, const float* g, T* dp, int64_t K, int64_t B,
-                                 int64_t H, int64_t W, int64_t xs_b, int64_t xs_h,
-                                 int64_t xs_w, int64_t xs_c, int64_t ps_k, int64_t ps_b,
-                                 int64_t ps_h, int64_t ps_w, int64_t ps_c, int64_t gs_k,
-                                 int64_t gs_b, int64_t gs_h, int64_t gs_w, int64_t ds_k,
-                                 int64_t ds_b, int64_t ds_h, int64_t ds_w, int64_t ds_c) {
-  const dim3 block(kThreads);
-  if (staged) {
-    const size_t bytes = staging_bytes(C, sizeof(T));
-    const cudaError_t err = allow_shared(mdl_null_backward_staged_kernel<T>, bytes);
-    if (err != cudaSuccess) return err;
-    mdl_null_backward_staged_kernel<T><<<grid, block, bytes, s>>>(
-        x, p, g, dp, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c,
-        gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
-  } else {
-    mdl_null_backward_kernel<T><<<grid, block, 0, s>>>(
-        x, p, g, dp, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c,
-        gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
-  }
+cudaError_t launch_null_backward(dim3 grid, cudaStream_t s, const float* x, const T* p,
+                                 const float* g, T* dp, int C, int64_t K, int64_t B, int64_t H,
+                                 int64_t W, int64_t xs_b, int64_t xs_h, int64_t xs_w,
+                                 int64_t xs_c, int64_t ps_k, int64_t ps_b, int64_t ps_h,
+                                 int64_t ps_w, int64_t ps_c, int64_t gs_k, int64_t gs_b,
+                                 int64_t gs_h, int64_t gs_w, int64_t ds_k, int64_t ds_b,
+                                 int64_t ds_h, int64_t ds_w, int64_t ds_c) {
+  mdl_null_backward_kernel<T><<<grid, dim3(kThreads), 0, s>>>(
+      x, p, g, dp, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c,
+      gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
   return cudaGetLastError();
 }
 
@@ -364,12 +342,14 @@ extern "C" int mdl_null_forward(
                              ps_c);
 }
 
-// The arguments of mdl_log_prob_backward plus `staged`: g float32
-// [K, B, H, W] view (zero strides allowed), dparams in the params' dtype,
-// written through its own strides.
+// The arguments of mdl_log_prob_backward, `tiled` among them (1 = the tile
+// path, for dense channel-minor params and dparams on 16-byte aligned
+// addresses, cudaErrorInvalidValue for any other; 0 = the direct path): g
+// float32 [K, B, H, W] view (zero strides allowed), dparams in the params'
+// dtype, written through its own strides.
 extern "C" int mdl_null_backward(
     const void* x, const void* params, const void* g, void* dparams, int params_bf16,
-    int n_mix, int staged, int64_t K, int64_t B, int64_t H, int64_t W,
+    int n_mix, int tiled, int64_t K, int64_t B, int64_t H, int64_t W,
     int64_t xs_b, int64_t xs_h, int64_t xs_w, int64_t xs_c,
     int64_t ps_k, int64_t ps_b, int64_t ps_h, int64_t ps_w, int64_t ps_c,
     int64_t gs_k, int64_t gs_b, int64_t gs_h, int64_t gs_w,
@@ -378,20 +358,47 @@ extern "C" int mdl_null_backward(
   if (n_mix < 1 || n_mix > kMaxMix) return cudaErrorInvalidValue;
   const int64_t total = K * B * H * W;
   if (total <= 0) return cudaSuccess;
-  const dim3 grid = mdla::grid_for(total);
+  const int C = 10 * n_mix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* gf = static_cast<const float*>(g);
+  if (tiled) {
+    if (!mdlt::channel_minor_dense(K, B, H, W, C, ps_k, ps_b, ps_h, ps_w, ps_c) ||
+        !mdlt::channel_minor_dense(K, B, H, W, C, ds_k, ds_b, ds_h, ds_w, ds_c) ||
+        !mdlt::aligned16(params) || !mdlt::aligned16(dparams))
+      return cudaErrorInvalidValue;
+    if (params_bf16) {
+      return mdlt::launch<__nv_bfloat16>(
+          mdl_null_backward_tiled_kernel<__nv_bfloat16>, false, s,
+          {xf, static_cast<const __nv_bfloat16*>(params), gf,
+           static_cast<__nv_bfloat16*>(dparams), C, K, B, H, W, xs_b, xs_h, xs_w, xs_c,
+           gs_k, gs_b, gs_h, gs_w});
+    }
+    return mdlt::launch<float>(
+        mdl_null_backward_tiled_kernel<float>, false, s,
+        {xf, static_cast<const float*>(params), gf, static_cast<float*>(dparams), C, K, B, H, W,
+         xs_b, xs_h, xs_w, xs_c, gs_k, gs_b, gs_h, gs_w});
+  }
+  const dim3 grid = mdla::grid_for(total);
   if (params_bf16) {
-    return launch_null_backward(staged, 10 * n_mix, grid, s, xf,
-                                static_cast<const __nv_bfloat16*>(params), gf,
-                                static_cast<__nv_bfloat16*>(dparams), K, B, H, W,
+    return launch_null_backward(grid, s, xf, static_cast<const __nv_bfloat16*>(params), gf,
+                                static_cast<__nv_bfloat16*>(dparams), C, K, B, H, W,
                                 xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c,
                                 gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
   }
-  return launch_null_backward(staged, 10 * n_mix, grid, s, xf,
-                              static_cast<const float*>(params), gf,
-                              static_cast<float*>(dparams), K, B, H, W,
+  return launch_null_backward(grid, s, xf, static_cast<const float*>(params), gf,
+                              static_cast<float*>(dparams), C, K, B, H, W,
                               xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c,
                               gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
+}
+
+// Blocks an SM of the current device holds of mdl_null_backward's tile path
+// for this dtype and mixture count (what sizes its grid); 0 for a count out of
+// range.
+extern "C" int mdl_null_backward_tile_blocks_per_sm(int params_bf16, int n_mix) {
+  if (n_mix < 1 || n_mix > kMaxMix) return 0;
+  return params_bf16 ? mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<__nv_bfloat16>,
+                                           10 * n_mix, false)
+                     : mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<float>, 10 * n_mix,
+                                           false);
 }

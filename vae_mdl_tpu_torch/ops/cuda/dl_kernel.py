@@ -41,6 +41,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from vae_mdl_tpu_torch.distributions.continuous import softplus
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.ops.cuda.build import CSRC, build
 
@@ -225,6 +226,49 @@ def dl_grads_plain(x, loc, logscale, low: float = -1.0, high: float = 1.0,
     d_loc = torch.where(right, sg_start * inv_std, d_loc)
     d_ls = torch.where(right, sg_start * start, d_ls)
     return d_loc, d_ls
+
+
+def dl_value_and_grads_plain(x, loc, logscale, low: float = -1.0, high: float = 1.0,
+                             interval_width: float = 2.0 / 255.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(log_prob, d/d loc, d/d logscale)`` in one sweep: the plain version
+    of ``csrc/dl_cascade.cuh``'s ``dl_value_and_grads``, which the MoDL
+    backward's tile path evaluates once a cascade. The value and the
+    derivatives come from the sub-expressions they share (inv_std, start,
+    stop, the two sigmoids, prob, a), each product and sum in the order
+    ``discretized_logistic_log_prob`` and ``dl_grads_plain`` take it, so the
+    three results equal theirs exactly."""
+    half = interval_width / 2.0
+    centered = x - loc
+    inv_std = torch.exp(-logscale)
+    start = (centered - half) * inv_std
+    stop = (centered + half) * inv_std
+    sg_stop = torch.sigmoid(stop)
+    sg_start = torch.sigmoid(start)
+    prob = torch.clamp_min(sg_stop - sg_start, 1e-12)
+
+    # the CDF-difference branch, and below 1e-5 the PDF * bin width
+    ds = sg_stop * (1.0 - sg_stop) / prob
+    da = sg_start * (1.0 - sg_start) / prob
+    a = centered * inv_std
+    c_ap = 2.0 * torch.sigmoid(-a) - 1.0
+    use_log = prob > 1e-5
+    lp = torch.where(use_log, torch.log(prob),
+                     -a - logscale - 2.0 * softplus(-a) + math.log(interval_width))
+    d_loc = torch.where(use_log, inv_std * (da - ds), -c_ap * inv_std)
+    d_ls = torch.where(use_log, da * start - ds * stop, -c_ap * a - 1.0)
+
+    left = x <= low
+    le = torch.sigmoid(-stop)
+    lp = torch.where(left, stop - softplus(stop), lp)
+    d_loc = torch.where(left, -le * inv_std, d_loc)
+    d_ls = torch.where(left, -le * stop, d_ls)
+
+    right = x >= high
+    lp = torch.where(right, -softplus(start), lp)
+    d_loc = torch.where(right, sg_start * inv_std, d_loc)
+    d_ls = torch.where(right, sg_start * start, d_ls)
+    return lp, d_loc, d_ls
 
 
 def dl_backward_plain(x, loc, logscale, g, low: float = -1.0, high: float = 1.0,

@@ -53,6 +53,8 @@ def library() -> ctypes.CDLL:
     lib.mdl_null_forward.restype = i32
     lib.mdl_null_backward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 22 + [ptr]
     lib.mdl_null_backward.restype = i32
+    lib.mdl_null_backward_tile_blocks_per_sm.argtypes = [i32] * 2
+    lib.mdl_null_backward_tile_blocks_per_sm.restype = i32
     return lib
 
 

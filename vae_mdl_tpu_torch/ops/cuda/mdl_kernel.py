@@ -9,6 +9,19 @@ and ``_backward_params_bl_kgrid`` another, both in ``csrc/mdl_log_prob.cu``,
 reading the head's output where it lies. The source's header says what
 bounds them and how they are laid out.
 
+The backward has two memory paths, chosen by ``backward_path`` from the
+operands' strides, dtype and addresses alone. ``"tiled"``: parameters and
+gradient dense and channel-minor (what the model's channels-last head hands
+on) and 16-byte aligned; a tile of ``TILE_PIXELS`` pixels is then one run of
+bytes, which persistent blocks bring into shared memory with a bulk
+asynchronous copy and send back with one bulk store, each cascade evaluated
+once for its value and its derivatives
+(``csrc/mdl_tile.cuh``; ``tiles_of`` is the blocks' schedule). ``"direct"``:
+any other strides (NCHW, a sliced or misaligned view), one thread a pixel
+through the strides, coalesced in NCHW. The choice goes to the C entry point
+as an argument, and asking for ``"tiled"`` on operands that do not fit
+raises: nothing tries one path after the other. Both give the same bits.
+
 - ``mdl_log_prob(x01, parameters)`` is the drop-in for
   ``distributions.mixture.mixture_log_prob``: CPU tensors take that plain
   version, CUDA tensors launch the forward kernel (``mdl_log_prob_cuda``),
@@ -25,15 +38,16 @@ bounds them and how they are laid out.
   ``vae_mdl_tpu_torch/_build/`` (``ops/cuda/build.py``: keyed by a hash of the
   source, the shared header and the flags) and loaded with ``ctypes``; nothing
   is built or loaded at import.
-- ``launches`` and ``backward_launches`` count the two kernels' launches;
-  callers reset them to 0 and read them to show that a run went through the
-  kernels.
+- ``launches`` and ``backward_launches`` count the two kernels' launches,
+  ``backward_launches_by_path`` the backward's by memory path; callers reset
+  them to 0 and read them to show that a run went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,9 +61,14 @@ SOURCE = _build.CSRC / "mdl_log_prob.cu"
 MAX_MIX = 10
 _INTERVAL_WIDTH = 2.0 / 255.0  # 256 levels on [-1, 1]
 
-# kernel launches since the counter was last set to 0: forward, backward
+BACKWARD_PATHS = ("tiled", "direct")
+TILE_PIXELS = 128  # csrc/mdl_tile.cuh kTilePixels: pixels a tile, threads a block
+
+# kernel launches since the counter was last set to 0: forward, backward, and
+# the backward's by memory path
 launches = 0
 backward_launches = 0
+backward_launches_by_path: Dict[str, int] = dict.fromkeys(BACKWARD_PATHS, 0)
 
 
 def library_path() -> Path:
@@ -63,8 +82,10 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mdl_log_prob_forward.argtypes = [ptr] * 3 + [i32] * 2 + [i64] * 13 + [ptr]
     lib.mdl_log_prob_forward.restype = i32
-    lib.mdl_log_prob_backward.argtypes = [ptr] * 4 + [i32] * 2 + [i64] * 22 + [ptr]
+    lib.mdl_log_prob_backward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 22 + [ptr]
     lib.mdl_log_prob_backward.restype = i32
+    lib.mdl_log_prob_backward_tile_blocks_per_sm.argtypes = [i32] * 2
+    lib.mdl_log_prob_backward_tile_blocks_per_sm.restype = i32
     return lib
 
 
@@ -110,33 +131,97 @@ def _launch(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
     return out.unsqueeze(-1)
 
 
-def mdl_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor,
-                      g: torch.Tensor) -> torch.Tensor:
-    """The backward kernel: d(sum g * mdl_log_prob(x01, parameters)) /
-    d parameters. ``g`` ``[k, B, H, W, 1]`` float32, any strides (an
-    expanded cotangent is read in place). The gradient has the parameters'
-    dtype and, as ``torch.empty_like`` gives it, their strides: the head
-    conv's NCHW output gets an NCHW gradient."""
-    global backward_launches
-    _check(x01, parameters)
+def _channel_minor_dense(t: torch.Tensor) -> bool:
+    """Dense with the last dimension fastest; a dimension of one element may
+    have any stride (``mdlt::channel_minor_dense``)."""
+    expected = 1
+    for size, stride in zip(reversed(t.shape), reversed(t.stride())):
+        if size != 1 and stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def backward_path(parameters: torch.Tensor, dp: torch.Tensor) -> str:
+    """The memory path the backward kernel takes for these parameters and
+    this gradient buffer, from their strides, dtype and addresses alone:
+    ``"tiled"`` where both are dense channel-minor ``[k, B, H, W, C]`` float32
+    or bfloat16 tensors of one dtype on 16-byte aligned addresses, so that
+    ``TILE_PIXELS`` consecutive pixels are one run of bytes a bulk copy can
+    move; ``"direct"`` for anything else (NCHW strides, a sliced or
+    misaligned view) and for empty operands, which launch nothing."""
+    fits = (parameters.numel() > 0
+            and parameters.dtype == dp.dtype
+            and parameters.dtype in (torch.float32, torch.bfloat16)
+            and tuple(parameters.shape) == tuple(dp.shape)
+            and _channel_minor_dense(parameters) and _channel_minor_dense(dp)
+            and parameters.data_ptr() % 16 == 0 and dp.data_ptr() % 16 == 0)
+    return "tiled" if fits else "direct"
+
+
+def tiles_of(total: int, tile: int, blocks: int) -> List[List[Tuple[int, int]]]:
+    """The tile path's schedule, as ``mdlt::for_each_tile`` walks it: ``total``
+    pixels cut into tiles of ``tile``, block ``b`` of ``blocks`` taking tiles
+    ``b, b + blocks, ...``. Returns, per block, its ``(first pixel, pixels)``
+    in order; only the last tile of all can be short."""
+    n_tiles = -(-total // tile)
+    return [[(t * tile, min(tile, total - t * tile)) for t in range(b, n_tiles, blocks)]
+            for b in range(blocks)]
+
+
+def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int) -> int:
+    """Blocks an SM of the current CUDA device holds of the backward's tile
+    path for parameters of ``dtype`` with ``n_mix`` mixtures, as the CUDA
+    occupancy query sizes its persistent grid."""
+    return _library().mdl_log_prob_backward_tile_blocks_per_sm(
+        int(dtype == torch.bfloat16), n_mix)
+
+
+def _check_cotangent(parameters: torch.Tensor, g: torch.Tensor) -> None:
     if not g.is_cuda or g.device != parameters.device:
         raise ValueError(f"g on {g.device}, parameters on {parameters.device}")
     if g.dtype != torch.float32:
         raise TypeError(f"g must be float32; got {g.dtype}")
-    k, b, h, w, c = parameters.shape
+    k, b, h, w, _ = parameters.shape
     if tuple(g.shape) != (k, b, h, w, 1):
         raise ValueError(f"g must be [k, B, H, W, 1] = {(k, b, h, w, 1)}; got {tuple(g.shape)}")
+
+
+def _check_path(path: Optional[str]) -> None:
+    if path is not None and path not in BACKWARD_PATHS:
+        raise ValueError(f"path must be one of {BACKWARD_PATHS} or None; got {path!r}")
+
+
+def mdl_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor,
+                      path: Optional[str] = None) -> torch.Tensor:
+    """The backward kernel: d(sum g * mdl_log_prob(x01, parameters)) /
+    d parameters. ``g`` ``[k, B, H, W, 1]`` float32, any strides (an
+    expanded cotangent is read in place). The gradient has the parameters'
+    dtype and, as ``torch.empty_like`` gives it, their strides: the
+    channels-last head's output gets a channel-minor gradient, an NCHW view
+    an NCHW one. ``path`` names the memory path; ``None`` takes
+    ``backward_path``'s choice, and ``"tiled"`` on operands that do not fit
+    it raises."""
+    global backward_launches
+    _check_path(path)
+    _check(x01, parameters)
+    _check_cotangent(parameters, g)
+    k, b, h, w, c = parameters.shape
     dp = torch.empty_like(parameters)
     if dp.numel():
+        path = path or backward_path(parameters, dp)
         with torch.cuda.device(parameters.device):
             err = _library().mdl_log_prob_backward(
                 x01.data_ptr(), parameters.data_ptr(), g.data_ptr(), dp.data_ptr(),
                 int(parameters.dtype == torch.bfloat16), c // 10,
+                int(path == "tiled"),
                 k, b, h, w, *x01.stride(), *parameters.stride(), *g.stride()[:4],
                 *dp.stride(), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"mdl_log_prob backward kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"mdl_log_prob backward kernel launch ({path} path) failed: "
+                               f"CUDA error {err}")
         backward_launches += 1
+        backward_launches_by_path[path] += 1
     return dp
 
 
@@ -200,12 +285,15 @@ def mdl_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
         return grad.to(parameters.dtype)
 
 
-def mdl_backward(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def mdl_backward(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor,
+                 path: Optional[str] = None) -> torch.Tensor:
     """d(sum g * mdl_log_prob)/d parameters: the plain version for CPU
-    tensors, the backward kernel for CUDA tensors."""
+    tensors, the backward kernel (on ``path``, see ``mdl_backward_cuda``) for
+    CUDA tensors."""
     if x01.device.type == "cpu" and parameters.device.type == "cpu":
+        _check_path(path)
         return mdl_backward_plain(x01, parameters, g)
-    return mdl_backward_cuda(x01, parameters, g)
+    return mdl_backward_cuda(x01, parameters, g, path)
 
 
 def _plain_x_grad(x01, parameters, g):

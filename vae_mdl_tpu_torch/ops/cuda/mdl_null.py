@@ -11,30 +11,47 @@ output element and do no likelihood math:
     backward  d parameters = 0.5 * parameters + g      (d x = 0)
 
 ``variant="dma"`` reads and writes device memory directly through the
-operands' strides, as the MoDL kernels do; ``variant="staged"`` moves each
-block's tile through shared memory. Put in place of the MoDL likelihood in a
-timed train step (``probes/kernel_structure.py``), they split the step's cost
-into launch + traffic, staging and math. The numbers mean nothing as a
+operands' strides, one thread a pixel: in the model's channel-minor layout
+its gradient write is uncoalesced, so it is slow there by construction; it is
+the control whose distance from ``"staged"`` is the staging term.
+``variant="staged"`` moves each block's tile through shared memory: the
+forward with coalesced loads into padded rows; the backward on the MoDL
+backward's own memory path and dispatch (``mdl_kernel.backward_path``: the
+tile path of ``csrc/mdl_tile.cuh``, bulk asynchronous copies in and out, for
+dense channel-minor operands, the direct path for any other), so it prices
+exactly the I/O of the kernel it mirrors. Put in place of the MoDL likelihood
+in a timed train step (``probes/kernel_structure.py``), they split the step's
+cost into launch + traffic, staging and math. The numbers mean nothing as a
 likelihood.
 
 ``mdl_null_forward`` and ``mdl_null_backward`` take the plain versions for
 CPU tensors and launch the kernels for CUDA tensors; ``mdl_null_log_prob`` is
 the differentiable pair behind a ``torch.autograd.Function`` with the
 signature of ``mdl_kernel.mdl_log_prob``. ``launches`` and
-``backward_launches`` count the kernels' launches.
+``backward_launches`` count the kernels' launches,
+``backward_launches_by_path`` the backward's by memory path.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from vae_mdl_tpu_torch.ops.cuda import io_probe
-from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import _check
+from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import (
+    BACKWARD_PATHS,
+    _check,
+    _check_cotangent,
+    backward_path,
+)
 
 VARIANTS = ("dma", "staged")
 
-# kernel launches since the counter was last set to 0: forward, backward
+# kernel launches since the counter was last set to 0: forward, backward, and
+# the backward's by memory path
 launches = 0
 backward_launches = 0
+backward_launches_by_path: Dict[str, int] = dict.fromkeys(BACKWARD_PATHS, 0)
 
 
 def _staged(variant: str) -> int:
@@ -81,29 +98,37 @@ def mdl_null_forward_cuda(x01: torch.Tensor, parameters: torch.Tensor,
 def mdl_null_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor,
                            variant: str = "dma") -> torch.Tensor:
     """The backward kernel, on what ``mdl_kernel.mdl_backward_cuda`` takes:
-    the result has the parameters' dtype and strides."""
+    the result has the parameters' dtype and strides. ``"dma"`` is the direct
+    path whatever the layout; ``"staged"`` the path the MoDL backward takes
+    for these operands."""
     global backward_launches
     staged = _staged(variant)
     _check(x01, parameters)
-    if not g.is_cuda or g.device != parameters.device:
-        raise ValueError(f"g on {g.device}, parameters on {parameters.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"g must be float32; got {g.dtype}")
+    _check_cotangent(parameters, g)
     k, b, h, w, c = parameters.shape
-    if tuple(g.shape) != (k, b, h, w, 1):
-        raise ValueError(f"g must be [k, B, H, W, 1] = {(k, b, h, w, 1)}; got {tuple(g.shape)}")
     dp = torch.empty_like(parameters)
     if dp.numel():
+        path = backward_path(parameters, dp) if staged else "direct"
         with torch.cuda.device(parameters.device):
             err = io_probe.library().mdl_null_backward(
                 x01.data_ptr(), parameters.data_ptr(), g.data_ptr(), dp.data_ptr(),
-                int(parameters.dtype == torch.bfloat16), c // 10, staged,
+                int(parameters.dtype == torch.bfloat16), c // 10,
+                int(path == "tiled"),
                 k, b, h, w, *x01.stride(), *parameters.stride(), *g.stride()[:4],
                 *dp.stride(), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"mdl_null_backward kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"mdl_null_backward kernel launch ({path} path) failed: "
+                               f"CUDA error {err}")
         backward_launches += 1
+        backward_launches_by_path[path] += 1
     return dp
+
+
+def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int) -> int:
+    """Blocks an SM of the current CUDA device holds of the null backward's
+    tile path for parameters of ``dtype`` with ``n_mix`` mixtures."""
+    return io_probe.library().mdl_null_backward_tile_blocks_per_sm(
+        int(dtype == torch.bfloat16), n_mix)
 
 
 def _all_cpu(*tensors) -> bool:

@@ -8,7 +8,8 @@ step, and the components are read off the differences between four steps:
   dl_head : no mixture kernels at all: a discretized-logistic head
   dma     : kernels that only read and write what the MoDL kernels read and
             write, straight from device memory -> launch + traffic
-  staged  : the same through shared memory -> what staging costs
+  staged  : the same on the shipped kernels' memory paths (the backward on the
+            MoDL backward's tile path) -> what staging costs
   full    : the shipped kernels -> the math
 
 A train step here is held by the host, so each step is timed twice: the wall
@@ -60,12 +61,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_counts() -> None:
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches = kernels.backward_launches = 0
+    for kernels in (mdl_kernel, mdl_null):
+        kernels.backward_launches_by_path.update(dict.fromkeys(mdl_kernel.BACKWARD_PATHS, 0))
 
 
 def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> dict:
     """One of the four steps: wall ms per step (median of the harness's
     blocks), device-busy ms per step (one traced call of ``spc`` steps) and
-    the launches of every likelihood kernel, counted from 0."""
+    the launches of every likelihood kernel, counted from 0, the two
+    backwards' also by memory path."""
     over = {"likelihood": "dl"} if label == "dl_head" else None
     swap = likelihood_swapped(label) if label in mdl_null.VARIANTS else contextlib.nullcontext()
     reset_counts()
@@ -75,7 +79,9 @@ def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> 
     return {"ms": r["ms"], "imgs_per_s": r["imgs_per_s"], "busy_ms": r["busy_ms"],
             "likelihood_ms": likelihood, "rest_ms": r["busy_ms"] - likelihood,
             "by_class": r["by_class"], "traced_wall_ms": r["traced_wall_ms"],
-            "launches": launch_counts()}
+            "launches": launch_counts(),
+            "backward_paths": {"mdl_log_prob_backward": dict(mdl_kernel.backward_launches_by_path),
+                               "mdl_null_backward": dict(mdl_null.backward_launches_by_path)}}
 
 
 def decomposition(results: Dict[str, dict], key: str) -> Dict[str, float]:

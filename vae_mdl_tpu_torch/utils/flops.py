@@ -197,7 +197,8 @@ def mdl_train_transcendentals(model_cfg, batch: int) -> dict:
 # dl_log_prob computes inv_std (exp), returns from an edge bin with one
 # softplus, else takes two sigmoids and then the log or, below 1e-5, one
 # softplus; dl_grads computes inv_std, then one sigmoid in an edge bin, two in
-# the CDF-difference branch and a third in the PDF branch.
+# the CDF-difference branch and a third in the PDF branch; dl_value_and_grads
+# gives both from one inv_std and one pair of sigmoids.
 _CASCADE_FWD = {
     "right": {"exp": 1, "softplus": 1},
     "left": {"exp": 1, "softplus": 1},
@@ -209,6 +210,12 @@ _CASCADE_BWD = {
     "left": {"exp": 1, "sigmoid": 1},
     "cdf": {"exp": 1, "sigmoid": 2},
     "pdf": {"exp": 1, "sigmoid": 3},
+}
+_CASCADE_FUSED = {
+    "right": {"exp": 1, "softplus": 1, "sigmoid": 1},
+    "left": {"exp": 1, "softplus": 1, "sigmoid": 1},
+    "cdf": {"exp": 1, "sigmoid": 2, "log": 1},
+    "pdf": {"exp": 1, "sigmoid": 3, "softplus": 1},
 }
 _OPS = ("tanh", "exp", "sigmoid", "softplus", "log")
 # The fewest MUFU (special-function unit) instructions one call of each
@@ -246,12 +253,14 @@ def modl_branch_counts(x01, parameters) -> Dict[str, int]:
         return branch_counts(x[..., None], loc, logscale, -1.0, 1.0, 2.0 / 255.0)
 
 
-def cascade_transcendentals(branch_counts: Dict[str, int], backward: bool = False) -> dict:
-    """Calls by op of ``csrc/dl_cascade.cuh``'s ``dl_log_prob`` (or, with
-    ``backward``, ``dl_grads``) over cascades that take each branch
-    ``branch_counts`` = ``{"right", "left", "cdf", "pdf": n}`` times: the
+def cascade_transcendentals(branch_counts: Dict[str, int], backward: bool = False,
+                            fused: bool = False) -> dict:
+    """Calls by op of ``csrc/dl_cascade.cuh``'s ``dl_log_prob`` (with
+    ``backward``, ``dl_grads``; with ``fused``, ``dl_value_and_grads``, the two
+    in one sweep) over cascades that take each branch ``branch_counts`` =
+    ``{"right", "left", "cdf", "pdf": n}`` times. The first two are the
     census of the discretized-logistic kernels of ``csrc/dl_log_prob.cu``."""
-    table = _CASCADE_BWD if backward else _CASCADE_FWD
+    table = _CASCADE_FUSED if fused else _CASCADE_BWD if backward else _CASCADE_FWD
     out = dict.fromkeys(_OPS, 0.0)
     for branch, n in branch_counts.items():
         for op, calls in table[branch].items():
@@ -260,34 +269,59 @@ def cascade_transcendentals(branch_counts: Dict[str, int], backward: bool = Fals
 
 
 def mdl_cuda_transcendentals(branch_counts: Dict[str, int], pixels: int, n_mix: int,
-                             backward: bool = False) -> dict:
+                             backward: bool = False, path: str = "tiled") -> dict:
     """Calls by op of one launch of the CUDA MoDL forward (or backward)
     kernel of ``csrc/mdl_log_prob.cu`` over ``pixels`` pixels whose 3 * n_mix
     cascades take the branches ``branch_counts``.
 
     Forward, per pixel: n exp and a log (the logits' logsumexp), 3n tanh, the
-    3n cascades, n exp and a log (the weights' logsumexp). Backward: the
-    forward's weights again without its last log, then per mixture the three
-    cascades' derivatives. Expressions the backward's second pass writes again
-    unconditionally are counted once, as the compiler merges them: the two
-    softmaxes' exponentials, the 3n tanh and each cascade's exp(-logscale).
-    The SASS bears that out (``ops/cuda/build.py`` ``mufu_counts``, n_mix = 5,
-    float32: 115 MUFU.EX2 in the forward, 190 in the backward, against 115
-    and 190 by this count with every branch's calls added up and 220 with
-    nothing merged); the sigmoids sit under the cascade's branches in both
-    passes and stay counted in each.
+    3n cascades, n exp and a log (the weights' logsumexp).
+
+    Backward on the tile path (``path="tiled"``, what the model's layout
+    takes): the logits' n exp and log, 3n tanh, each cascade once through
+    ``dl_value_and_grads``, and the weights' n exp; nothing is evaluated
+    twice.
+
+    Backward on the direct path (``path="direct"``): the forward's weights
+    without its last log, then per mixture the three cascades' derivatives.
+    Expressions the second pass writes again unconditionally are counted
+    once, as the compiler merges them: the two softmaxes' exponentials, the
+    3n tanh and each cascade's exp(-logscale); the sigmoids sit under the
+    cascade's branches in both passes and stay counted in each.
+
+    ``mdl_cuda_sass_ex2`` holds these counts against the built kernels.
     """
+    if path not in ("tiled", "direct"):
+        raise ValueError(f"path must be 'tiled' or 'direct'; got {path!r}")
     n = n_mix
-    out = cascade_transcendentals(branch_counts)
+    fused = backward and path == "tiled"
+    out = cascade_transcendentals(branch_counts, fused=fused)
     out["tanh"] += 3.0 * n * pixels
     out["exp"] += 2.0 * n * pixels
     out["log"] += (1.0 if backward else 2.0) * pixels
-    if backward:
+    if backward and not fused:
         cascades = float(sum(branch_counts.values()))
         for op, calls in cascade_transcendentals(branch_counts, backward=True).items():
             out[op] += calls
         out["exp"] -= cascades  # exp(-logscale), shared with the first pass
     return out
+
+
+def mdl_cuda_sass_ex2(n_mix: int, backward: bool = False, path: str = "tiled") -> int:
+    """The MUFU.EX2 instructions in the SASS of one MoDL kernel of
+    ``csrc/mdl_log_prob.cu`` (``ops/cuda/build.py`` ``mufu_counts``), which
+    lists every branch of every cascade once. A cascade's listing holds its
+    exp(-logscale), the common pair of sigmoids, and per branch what
+    ``cascade_transcendentals`` counts beyond those: forward 1 + 2 + one
+    softplus in each edge bin and in the PDF branch = 6; the direct backward
+    adds ``dl_grads``' sigmoids (1 + 1 + 2 + 1, its exp(-logscale) merged) =
+    11; the fused sweep shares the pair of sigmoids: 1 + 2 + (softplus +
+    sigmoid) in each edge bin and in the PDF branch = 9. Around them a kernel
+    holds 3n tanhf (one EX2 on the large-argument path) and the two
+    softmaxes' 2n exp. n_mix = 5: 115 forward, 190 direct backward, 160 on
+    the tile path."""
+    per_cascade = (9 if path == "tiled" else 11) if backward else 6
+    return 3 * n_mix * per_cascade + 3 * n_mix + 2 * n_mix
 
 
 def mufu_instructions(calls: Dict[str, float]) -> float:
