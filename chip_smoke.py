@@ -34,13 +34,21 @@ and nothing falls back to a plain version.
    the four forward contracts of the TPU kernels it replaces (f32 and bf16
    parameters at k = 5 and k = 100 samples of a batch of 128), each in the
    NHWC-contiguous layout (what the model's head hands on: its convs run
-   channels-last) and the NCHW layout, with kernel and plain times from
-   CUDA events;
+   channels-last), where it takes the tile path, and the NCHW layout, where
+   it takes the direct path, with kernel and plain times from CUDA events;
+   on NHWC the direct path forced on the same operands, held to the tile
+   path bit for bit and timed in turns with it (CUDA events, and device
+   time from a CUDA graph of the launches); both paths on the device in
+   turns on model05's own head output at initialisation (f32 and bf16, k = 5
+   and 100), which takes almost no branch divergence where the contract
+   inputs take much; then a ragged case (k = 3, B = 7, 31 x 31) on the tile
+   path and a misaligned view, which takes the direct path, gives the same
+   bits and is refused on the tile path;
 5. the MoDL backward kernel at the three backward contracts (f32 and bf16 at
    k = 5, bf16 at k = 100; batch 128) on both memory paths: the tile path on
    NHWC (what ``backward_path`` picks there), the direct path on NCHW, and
-   the direct path forced on NHWC, which is the first version of the kernel
-   and the other side of the A/B: each against the analytic plain version
+   the direct path forced on NHWC (the same fused body through the
+   strides), the other side of the A/B: each against the analytic plain version
    element by element, the two NHWC results against each other bit for bit,
    and the path taken against autograd of the plain forward by the
    float64-accuracy rule; CUDA-event times of the backward alone, on NHWC
@@ -63,7 +71,9 @@ and nothing falls back to a plain version.
 7. the memory-path probes at full size: the channel sum (P1, P2) of a
    ``[100, 102400, 50]`` and a ``[100, 50, 102400]`` float32 tensor (2.05 GB
    each) through the direct and the staged path against ``sum`` (tolerance
-   stated at ``SUM_ATOL``; timed in phase 10c), and the null-body MoDL kernels (P3), forward and
+   stated at ``SUM_ATOL``; timed in phase 10c; P2 on its vec4 kernel, equal
+   bit for bit to the strided kernel and timed in turns with it), and the
+   null-body MoDL kernels (P3), forward and
    backward, direct and staged, at the model05 train shape (k = 5) and
    eval-chunk shape (k = 100), f32 and bf16, both layouts, against their
    plain versions (the sums within tolerance, ``0.5 p + g`` exactly); the
@@ -78,8 +88,10 @@ and nothing falls back to a plain version.
    through the plain version, from one state, batch and noise: model05,
    model03, model04 (GLU stacks) and model06 (two stochastic layers); a
    train step of model01 (MLP, Bernoulli) and model02 (Gaussian head) with a
-   finite, falling loss, and model01's rate through the timing harness at
-   100 steps per call;
+   finite, falling loss, model01's rate through the timing harness at 100
+   steps per call, and model01's 200-IS evaluation, whose Bernoulli sees one
+   binarisation of the batch, equal per image to the evaluator fed that
+   draw's binary batch;
 10. the main paths, each with all launch counts set to 0 just before it and
    read just after: (a) the 5000-importance-sample ``evaluate_llh`` on one
    batch of 128 images (k-chunks of 100) of model05 and of model03, in the
@@ -90,13 +102,16 @@ and nothing falls back to a plain version.
    synthetic uint8 images, in both configs through the kernels and in
    float32 through the plain version: the median imgs/s of 5 timed calls
    after a warm-up, the peak memory, and a finite loss that falls; every
-   MoDL backward of model05's training must have taken the tile path; (c) the
+   MoDL forward of model05's evaluation and training and every MoDL
+   backward of its training must have taken the tile path, while model03,
+   whose DL head launches no MoDL kernel, is the control; (c) the
    rest of the measurement path on model05, batch 128, k = 5, f32, through
    ``utils/timing.py``: ``probes.kernel_structure`` (the four-way step:
    the null kernels must launch in ``dma`` (backward on the direct path) and
    ``staged`` (on the tile path), the DL pair in ``dl_head``, the MoDL pair
    in ``full`` (backward on the tile path), and no other) and
-   ``probes.kernel_isolate`` / ``kernel_isolate2``;
+   ``probes.kernel_isolate`` / ``kernel_isolate2`` (every channel-first
+   launch on the vec4 kernel);
 11. a ``torch.profiler`` breakdown of device time by kernel class over 5
    train steps of each config of model05 and model03, with each kernel's
    device time per launch.
@@ -119,11 +134,15 @@ which another instruction sequence could beat. ``library_ms`` is the
 time of the one PyTorch call that computes the same function where there is
 one (``sum`` for the channel sums, ``torch.add(g, p, alpha=0.5)`` for the
 null backward), else null: no single PyTorch call computes a discretized
-logistic's or a MoDL's log-prob or its gradient. The two kernels with a
-tile path carry ``path`` (the memory path of the timed case), ``ms_direct``
-(the direct path on the same operands, which is the first version of the
-kernel, timed in turns with ``ms``) and ``blocks_per_sm`` (the tile path's
-blocks an SM, as the occupancy query sizes its grid). The MoDL backward's
+logistic's or a MoDL's log-prob or its gradient. The kernels with a tile
+path carry ``path`` (the memory path of the timed case), ``ms_direct`` (the
+direct path on the same operands, timed in turns with ``ms``) and
+``blocks_per_sm`` (the tile path's blocks an SM, as the occupancy query
+sizes its grid); the MoDL forward also ``device_ms`` and
+``device_ms_direct`` (the two paths' device times) and the same on the
+model's own head output at k = 100 (``model_head_device_ms``,
+``model_head_device_ms_direct``); P2 carries ``ms_strided``, its strided
+kernel timed in turns with the vec4 one. The MoDL backward's
 ``max_abs_err`` is over its float32 contract; ``max_abs_err_bf16`` (one bf16
 ulp of gradients of a few hundred) is over the bf16 ones, and
 ``tolerance_excess``, the largest |kernel - plain| less its per-element
@@ -143,7 +162,8 @@ import torch
 
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
-from vae_mdl_tpu_torch.evaluation.harness import evaluate_llh
+from vae_mdl_tpu_torch.data.preprocess import binarize
+from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
 from vae_mdl_tpu_torch.models.objective import compute_loss, training_loss_fn
 from vae_mdl_tpu_torch.models.vae import build_model, prior_for
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
@@ -164,6 +184,8 @@ from vae_mdl_tpu_torch.utils.flops import (
 from vae_mdl_tpu_torch.utils.timing import (
     cuda_ms,
     device_times,
+    graph_ms,
+    in_turns,
     kernel_class,
     setup_scanned_step,
     time_scanned_step,
@@ -340,8 +362,9 @@ def phase_build() -> None:
             if "Compiling entry function" in line and want in line:
                 mangled = line.split("'")[1]
                 if family in ("MoDL n_mix=5", "DL"):
-                    entry = ("backward, tile path" if "kernel_tiled" in line else
-                             "backward, direct path" if "backward_kernel" in line else "forward")
+                    entry = "backward" if "backward_kernel" in line else "forward"
+                    if family != "DL":
+                        entry += ", tile path" if "kernel_tiled" in line else ", direct path"
                     dtype = "" if family == "DL" else (" bf16" if "bfloat16" in line else " f32")
                     what = f"{family}{dtype} {entry}"
                 else:  # the kernel's name and template arguments, unmangled by eye
@@ -388,6 +411,7 @@ def roofline_path(smi: str) -> dict:
     say(f"roofline main path: kernel launches {counts}")
     _only(counts, ("sfu_probe", "mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob",
                    "dl_log_prob_backward"), "the roofline")
+    _took(mdl_kernel.launches_by_path, "tiled", "the roofline's MoDL forward")
     _took(mdl_kernel.backward_launches_by_path, "tiled", "the roofline's MoDL backward")
     for value in (*roof["rates"].values(), roof["additive"]["measured"],
                   *(f["cuda"] for f in roof["floors"].values())):
@@ -409,9 +433,9 @@ def roofline_path(smi: str) -> dict:
     for kernel, kinds in modl.items():
         if "Li5E" in kernel and "IfL" in kernel:  # float32, n_mix = 5
             backward = "backward_kernel" in kernel
-            path = "tiled" if "kernel_tiled" in kernel else "direct"
-            entry = f"backward, {path} path" if backward else "forward"
-            counted = mdl_cuda_sass_ex2(N_MIX, backward, path)
+            path = "tile" if "kernel_tiled" in kernel else "direct"
+            entry = f"{'backward' if backward else 'forward'}, {path} path"
+            counted = mdl_cuda_sass_ex2(N_MIX, backward)
             say(f"SASS MoDL f32 n_mix=5 {entry}: MUFU instructions {kinds} (every branch of "
                 f"every cascade counted once); the census counts {counted} EX2")
             if kinds.get("EX2") != counted:
@@ -483,36 +507,104 @@ def phase_kernel_vs_plain():
                                ("K4f", 100, torch.bfloat16)):
         for nchw in (False, True):
             x, p = modl_inputs(k, dtype, nchw, gen)
+            path = "direct" if nchw else "tiled"
+            layout = "nchw" if nchw else "nhwc"
+            name = f"{contract} {dtype_name(dtype)} k={k} B={BATCH} {layout}"
+            if mdl_kernel.forward_path(p) != path:
+                raise AssertionError(f"{name}: forward_path chose {mdl_kernel.forward_path(p)}")
             with torch.inference_mode():
+                before = dict(mdl_kernel.launches_by_path)
                 got = mdl_kernel.mdl_log_prob(x, p)
+                if mdl_kernel.launches_by_path[path] != before[path] + 1:
+                    raise AssertionError(f"{name}: the wrapper did not count a {path} launch")
                 want = mixture_log_prob(x, p.float())
                 torch.cuda.synchronize()
                 if got.shape != want.shape or got.dtype != torch.float32:
-                    raise AssertionError(f"{contract}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+                    raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
                 if not torch.isfinite(got).all():
-                    raise AssertionError(f"{contract}: non-finite kernel output")
+                    raise AssertionError(f"{name}: non-finite kernel output")
                 err = (got - want).abs()
                 excess = float((err - (ATOL + RTOL * want.abs())).max())
                 max_err = float(err.max())
-                ms = cuda_ms(lambda: mdl_kernel.mdl_log_prob(x, p), 20)
+                more, ab = {}, ""
+                if nchw:
+                    ms = cuda_ms(lambda: mdl_kernel.mdl_log_prob(x, p), 20)
+                else:  # the direct path on the same operands, in turns
+                    equal = bool(torch.equal(got, mdl_kernel.mdl_log_prob(x, p, path="direct")))
+                    fns = {"tiled": lambda: mdl_kernel.mdl_log_prob(x, p),
+                           "direct": lambda: mdl_kernel.mdl_log_prob(x, p, path="direct")}
+                    turns = in_turns(fns, ("direct", "tiled", "tiled", "direct"), 20)
+                    # under 0.15 ms an event time is mostly the wrapper's host
+                    # time: the device's, from a CUDA graph of the launches
+                    device = in_turns(fns, ("direct", "tiled", "tiled", "direct"), 20, graph_ms)
+                    ms = turns["tiled"]
+                    blocks = mdl_kernel.tile_blocks_per_sm(dtype, N_MIX, forward=True)
+                    more = dict(ms_direct=turns["direct"], bit_equal_to_direct=equal,
+                                blocks_per_sm=blocks, device_ms=device["tiled"],
+                                device_ms_direct=device["direct"])
+                    ab = (f" at {blocks} blocks an SM (direct path on the same operands, in "
+                          f"turns: {turns['direct']:.4f} ms; on the device {device['tiled']:.4f} "
+                          f"ms, direct {device['direct']:.4f}; the two paths bit-equal: {equal})")
+                    if not equal:
+                        raise AssertionError(f"{name}: the tile path's bits differ from the "
+                                             f"direct path's")
                 plain_ms = cuda_ms(lambda: mixture_log_prob(x, p.float()), 5)
             counts = modl_branch_counts(x, p)
             calls = mdl_cuda_transcendentals(counts, got.numel(), N_MIX)
             bound_ms, bound_by, by = bound(
                 distinct_bytes(x, p, got), modl_ops(counts, got.numel(), N_MIX, backward=False),
                 calls)
-            layout = "nchw" if nchw else "nhwc"
-            name = f"{contract} {dtype_name(dtype)} k={k} B={BATCH} {layout}"
-            say(f"kernel {name}: max|d|={max_err:.3e} (tolerance excess {excess:.3e}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {bounds_text(by)}); attainable at the measured rates "
-                f"{attainable(calls):.4f} ms")
+            say(f"kernel {name}, {path} path: max|d|={max_err:.3e} (tolerance excess "
+                f"{excess:.3e}), kernel {ms:.4f} ms{ab}, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}); attainable at the "
+                f"measured rates {attainable(calls):.4f} ms")
             if excess > 0:
                 raise AssertionError(f"{name}: kernel and plain version differ beyond tolerance")
             worst = max(worst, max_err)
-            cases[name] = dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, bounds=by, attainable_ms=attainable(calls))
+            cases[name] = dict(shape=name, path=path, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, bounds=by,
+                               attainable_ms=attainable(calls), **more)
             del x, p, got, want, err
+    torch.cuda.empty_cache()
+
+    # the model's own head output at initialisation (the eval's data, almost
+    # no branch divergence): both paths on the device, in turns
+    batch = torch.as_tensor(images(BATCH), device="cuda")
+    for which, cfg in configs_of("model05", plain=False).items():
+        for k in (5, 100):
+            x, p = roofline.head_parameters(experiment("model05", model=cfg), batch, k)
+            with torch.inference_mode():
+                device = in_turns({"tiled": lambda: mdl_kernel.mdl_log_prob(x, p),
+                                   "direct": lambda: mdl_kernel.mdl_log_prob(x, p, path="direct")},
+                                  ("direct", "tiled", "tiled", "direct"), 20 if k == 5 else 5,
+                                  graph_ms)
+            say(f"model05 head {which} k={k} {dtype_name(p.dtype)} ({mdl_kernel.forward_path(p)} "
+                f"path), forward on the device in turns: {device['tiled']:.4f} ms, direct path "
+                f"{device['direct']:.4f}")
+            cases[f"model05 head {which} k={k}"] = dict(device_ms=device["tiled"],
+                                                        device_ms_direct=device["direct"])
+            del x, p
+
+    # off the contracts' shapes: a ragged last tile and a misaligned view (k = 3, B = 7)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"{dtype_name(dtype)} k=3 B=7"
+        x, p = modl_inputs(3, dtype, False, gen, batch=7, side=31)
+        if p.shape[:4].numel() % mdl_kernel.TILE_PIXELS == 0:
+            raise AssertionError("the pixels are whole tiles: no ragged case")
+        got = mdl_kernel.mdl_log_prob(x, p)
+        want = mixture_log_prob(x, p.float())
+        excess = float(((got - want).abs() - (ATOL + RTOL * want.abs())).max())
+        equal = bool(torch.equal(got, mdl_kernel.mdl_log_prob(x, p, path="direct")))
+        off = misaligned_copy(p)
+        refused = refuses(lambda: mdl_kernel.mdl_log_prob(x, off, path="tiled"))
+        off_equal = bool(torch.equal(got, mdl_kernel.mdl_log_prob(x, off)))
+        say(f"kernel ragged {tag} 31x31 ({p.shape[:4].numel()} pixels), tile path: tolerance "
+            f"excess {excess:.3e}; equal to the direct path bit for bit: {equal}; a misaligned "
+            f"copy takes the direct path ({mdl_kernel.forward_path(off)}), gives the same bits "
+            f"({off_equal}) and is refused on the tile path ({refused})")
+        if excess > 0 or not (equal and off_equal and refused):
+            raise AssertionError(f"ragged or misaligned {tag}: the forward's paths disagree")
+        del x, p, got, want, off
     return worst, cases
 
 
@@ -540,14 +632,6 @@ def misaligned_copy(p: torch.Tensor) -> torch.Tensor:
     view = flat[lead:lead + p.numel()].view(p.shape)
     view.copy_(p)
     return view
-
-
-def in_turns(fns: dict, order, reps: int) -> dict:
-    """Mean ``cuda_ms`` of each function over its turns in ``order``."""
-    taken: dict = {name: [] for name in fns}
-    for name in order:
-        taken[name].append(cuda_ms(fns[name], reps))
-    return {name: float(np.mean(ms)) for name, ms in taken.items()}
 
 
 def backward_excess(name: str, got, want, p) -> tuple:
@@ -605,7 +689,7 @@ def phase_backward():
             torch.cuda.synchronize()
             max_err, excess = backward_excess(name, got, want, p)
             equal = None
-            if not nchw:  # the first version of the kernel on the same operands
+            if not nchw:  # the direct path on the same operands
                 direct = mdl_kernel.mdl_backward(x, p, g, path="direct")
                 torch.cuda.synchronize()
                 direct_err, direct_excess = backward_excess(f"{name}, direct path forced",
@@ -648,7 +732,7 @@ def phase_backward():
             fb_ms = cuda_ms(fwd_bwd_kernel, 20)
             fb_plain_ms = cuda_ms(fwd_bwd_plain, reps)
             counts = modl_branch_counts(x, p)
-            calls = mdl_cuda_transcendentals(counts, g.numel(), N_MIX, backward=True, path=path)
+            calls = mdl_cuda_transcendentals(counts, g.numel(), N_MIX, backward=True)
             bound_ms, bound_by, by = bound(
                 distinct_bytes(x, p, g, got), modl_ops(counts, g.numel(), N_MIX, backward=True),
                 calls)
@@ -898,12 +982,26 @@ def phase_io_probes():
             err = float((got - want).abs().max())
             which = "P1" if layout == "channel_minor" else "P2"
             name = f"{which} {layout} {path}" + (f" tile={tile}" if path == "staged" else "")
-            say(f"kernel {name} K={kernel_isolate.K} P={kernel_isolate.P} C={kernel_isolate.CH}: "
-                f"max|d|={err:.3e} (atol {SUM_ATOL}), bound {bound_ms:.4f} ms ({bound_by})")
+            kernel = "staged" if path == "staged" else io_probe.direct_kernel(params, layout)
+            more = {}
+            if layout == "channel_first":  # the strided kernel it replaced, in turns
+                strided = io_probe.channel_sum(params, layout, kernel="strided")
+                if kernel != "vec4" or not torch.equal(got, strided):
+                    raise AssertionError(f"{name}: the {kernel} kernel's bits differ from the "
+                                         f"strided kernel's")
+                del strided
+                more = dict(kernel=kernel, ms_strided=in_turns(
+                    {"vec4": lambda: io_probe.channel_sum(params, layout),
+                     "strided": lambda: io_probe.channel_sum(params, layout, kernel="strided")},
+                    ("strided", "vec4", "vec4", "strided"), 5)["strided"])
+            say(f"kernel {name} K={kernel_isolate.K} P={kernel_isolate.P} C={kernel_isolate.CH} "
+                f"({kernel} kernel): max|d|={err:.3e} (atol {SUM_ATOL}), bound {bound_ms:.4f} ms "
+                f"({bound_by})" + (f"; equal to the strided kernel bit for bit, which takes "
+                                   f"{more['ms_strided']:.4f} ms" if more else ""))
             if err > SUM_ATOL:
                 raise AssertionError(f"{name}: kernel and plain version differ beyond tolerance")
             records[name] = dict(max_abs_err=err, shape=name, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                                 bound_by=bound_by, **more)
         del params, want, got
     torch.cuda.empty_cache()
 
@@ -1021,19 +1119,40 @@ def phase_small_models(smi: str) -> None:
         f"{', '.join(f'{r:.0f}' for r in rates)}); {flops / cfg.data.batch_size / 1e6:.2f} "
         f"MFLOP per image and step on {smi}")
 
+    # model01's evaluation: a Bernoulli on dynamically binarised data, so one
+    # fixed binarisation a batch, drawn from its generator before the noise
+    cfg = experiment("model01")
+    model = seeded_model(cfg.model)
+    digits = np.random.default_rng(SEED).integers(0, 256, (BATCH,) + cfg.model.image_shape,
+                                                  dtype=np.uint8)
+    llh, per_image, _ = evaluate_llh(model, cfg, digits, n_samples=200, k_chunk=100,
+                                     batch_size=BATCH, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(_batch_seed(SEED, 0))
+    binary = binarize(gen, torch.as_tensor(digits, device="cuda").float() / 255.0)
+    off = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dynamic_binarization=False))
+    want = make_batch_evaluator(model, off, 200, 100)(binary, gen).cpu().numpy()
+    say(f"model01 200-IS evaluation of {BATCH} images binarised once: llh {llh:.4f} nats; "
+        f"equal per image to the evaluator fed the same draw's binary batch: "
+        f"{bool(np.array_equal(per_image, want))}")
+    if not np.isfinite(per_image).all() or not np.array_equal(per_image, want):
+        raise AssertionError("model01 evaluation: not the evaluation of one binarised batch")
+
 
 def probe_counts() -> dict:
     """Every kernel's launches since ``reset_probe_counts``."""
     return {**kernel_structure.launch_counts(), "sfu_probe": sfu_probe.launches,
             "channel_sum": io_probe.launches,
             **{f"channel_sum {layout} {path}": n
-               for (layout, path), n in io_probe.launches_by_path.items()}}
+               for (layout, path), n in io_probe.launches_by_path.items()},
+            **{f"channel_sum kernel {kernel}": n
+               for kernel, n in io_probe.launches_by_kernel.items()}}
 
 
 def reset_probe_counts() -> None:
     kernel_structure.reset_counts()
     sfu_probe.launches = io_probe.launches = 0
     io_probe.launches_by_path.clear()
+    io_probe.launches_by_kernel.update(dict.fromkeys(io_probe.KERNELS, 0))
 
 
 def _only(counts: dict, wanted, what: str) -> None:
@@ -1070,6 +1189,8 @@ def structure_path(smi: str):
         _only(counts, kernels, f"the {label} step")
         by_path[f"kernel_structure {label}"] = counts
     paths = {label: structure["steps"][label]["backward_paths"] for label in wanted}
+    _took(structure["steps"]["full"]["forward_paths"]["mdl_log_prob"], "tiled",
+          "the full step's MoDL forward")
     _took(paths["full"]["mdl_log_prob_backward"], "tiled", "the full step's MoDL backward")
     _took(paths["staged"]["mdl_null_backward"], "tiled", "the staged step's null backward")
     _took(paths["dma"]["mdl_null_backward"], "direct", "the dma step's null backward")
@@ -1083,8 +1204,14 @@ def structure_path(smi: str):
     by_path["kernel_isolate"] = counts = probe_counts()
     say(f"kernel_isolate main path: kernel launches {counts}")
     _only(counts, ("channel_sum", "channel_sum channel_minor direct",
-                   "channel_sum channel_minor staged", "channel_sum channel_first direct"),
-          "the memory-path probes")
+                   "channel_sum channel_minor staged", "channel_sum channel_first direct",
+                   "channel_sum kernel strided", "channel_sum kernel staged",
+                   "channel_sum kernel vec4"), "the memory-path probes")
+    # every channel-first launch took the vec4 kernel, every channel-minor
+    # direct one the strided kernel
+    if (counts["channel_sum kernel vec4"] != counts["channel_sum channel_first direct"]
+            or counts["channel_sum kernel strided"] != counts["channel_sum channel_minor direct"]):
+        raise AssertionError(f"the channel sums took other kernels: {counts}")
     return by_path, times
 
 
@@ -1368,6 +1495,11 @@ def main_path(name: str, path: str, smi: str) -> dict:
     own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
     _only(counts, [own] + ([f"{own}_backward"] if path == "train" else []),
           f"the {name} {path} path")
+    if own == "mdl_log_prob":
+        say(f"{name} {path} main path: MoDL forward launches by memory path "
+            f"{mdl_kernel.launches_by_path}")
+        _took(mdl_kernel.launches_by_path, "tiled", f"the {name} {path} path's MoDL forward")
+        counts["mdl_log_prob tiled"] = mdl_kernel.launches_by_path["tiled"]
     if own == "mdl_log_prob" and path == "train":
         by_memory_path = mdl_kernel.backward_launches_by_path
         say(f"{name} train main path: MoDL backward launches by memory path {by_memory_path}")
@@ -1433,7 +1565,9 @@ def main() -> None:
 
     kernels = [
         record("mdl_log_prob", MODL_SOURCE, REPLACES, max_err,
-               fwd_cases[f"K3f/K1f eval float32 k=100 B={BATCH} {modl}"]),
+               fwd_cases[f"K3f/K1f eval float32 k=100 B={BATCH} {modl}"],
+               model_head_device_ms=fwd_cases["model05 head f32 k=100"]["device_ms"],
+               model_head_device_ms_direct=fwd_cases["model05 head f32 k=100"]["device_ms_direct"]),
         record("mdl_log_prob_backward", MODL_SOURCE, REPLACES_BACKWARD, bwd_err["float32"],
                bwd_cases[f"K1b/K3b float32 k=5 B={BATCH} {modl}"],
                max_abs_err_bf16=bwd_err["bfloat16"], tolerance_excess=bwd_excess),

@@ -1,8 +1,9 @@
 """The MoDL and discretized-logistic CUDA kernels on the card: forward and
 backward against their plain versions, their input checks, their launch
-counts, and the gradient's layout; the probe kernel, the channel sum and the
-null-body MoDL kernels against theirs; and the default device of
-``build_model`` and the timing harness.
+counts, the two memory paths of each MoDL kernel against each other bit for
+bit, and the gradient's layout; the probe kernel, the channel sum and the
+null-body MoDL kernels against theirs; the default device of ``build_model``
+and the timing harness; and the evaluator's Bernoulli binarisation.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -12,8 +13,10 @@ Tolerances, as in chip_smoke.py (same float32 formulas and libdevice
 functions, sums in another order): forward per pixel |kernel - plain| <=
 2e-4 + 1e-5 |plain|; backward per element <= 2e-5 + 2e-4 |plain| for a
 float32 gradient and 2e-5 + 8e-3 |plain| for a bf16 one (one bf16 ulp is
-2^-8 of the value). The MoDL backward's two memory paths run the same float32
-operations in the same order and are held to each other exactly. The
+2^-8 of the value). The two memory paths of each MoDL kernel run one body,
+the same float32 operations in the same order, and are held to each other
+exactly; so are the channel sum's two direct kernels, which add each pixel's
+channels in one order. The
 discretized-logistic kernels run the plain
 version's float32 operations one for one, without fused multiply-adds (on
 the H100 they agreed bit for bit); they are held to the same forward and
@@ -22,14 +25,18 @@ functions as PyTorch's elementwise kernels (rtol 1e-5, atol 1e-6 over three
 iterations; nan meets nan); the channel sums add 50 to 100 float32 terms in
 another order (atol 1e-4); ``0.5 p + g`` is exact.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
+from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
 from vae_mdl_tpu_torch.models.vae import build_model
-from vae_mdl_tpu_torch.models.zoo import MODELS
+from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.utils.timing import setup_scanned_step
 
@@ -249,6 +256,100 @@ def test_train_layout_gradient_goes_through_the_tile_path(cuda, dtype):
     got = leaf.grad.permute(0, 2, 3, 1).reshape(3, 2, 5, 7, 50)
     err = (got.float() - want.float()).abs()
     assert (err <= 2e-5 + _BWD_RTOL[dtype] * want.float().abs()).all()
+
+
+# (k, B, H, W) of the forward's contracts: the train shape, the eval chunk and
+# a ragged one (20,181 pixels, no multiple of the 128-pixel tile)
+_FORWARD_SHAPES = [(5, 128, 32, 32), (100, 128, 32, 32), (3, 7, 31, 31)]
+
+
+def _card_inputs(device, k, b, h, w, dtype, seed=0):
+    """``_inputs``' distributions at the contracts' sizes, drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=device).float() / 255.0
+    x[0, 0, 0] = torch.tensor([0.0, 1.0, 0.0], device=device)
+    p = torch.randn((k, b, h, w, 50), generator=gen, device=device) * 3.0
+    return x, p.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _FORWARD_SHAPES)
+def test_forward_paths_agree_bit_for_bit(cuda, shape, dtype):
+    """Channel-minor parameters take the forward's tile path; forced onto the
+    direct one they give the same bits, and agree with the plain version."""
+    k, b, h, w = shape
+    x, p = _card_inputs(cuda, k, b, h, w, dtype)
+    assert mdl_kernel.forward_path(p) == "tiled"
+    before = dict(mdl_kernel.launches_by_path)
+    tiled = mdl_kernel.mdl_log_prob(x, p)
+    direct = mdl_kernel.mdl_log_prob(x, p, path="direct")
+    torch.cuda.synchronize()
+    assert mdl_kernel.launches_by_path == {"tiled": before["tiled"] + 1,
+                                           "direct": before["direct"] + 1}
+    assert torch.equal(tiled, direct)
+    assert 1 <= mdl_kernel.tile_blocks_per_sm(dtype, 5, forward=True) <= 16
+    ks = slice(0, min(k, 5))  # the plain version at the eval chunk's size is slow
+    want = mixture_log_prob(x, p[ks].float())
+    assert ((tiled[ks] - want).abs() <= 2e-4 + 1e-5 * want.abs()).all()
+    del tiled, direct, p
+
+
+@pytest.mark.parametrize("n_mix", [1, 2, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_tile_path_takes_every_mixture_count(cuda, dtype, n_mix):
+    x, p = _inputs(cuda, k=5, b=127, h=31, w=33, n_mix=n_mix, dtype=dtype)
+    tiled = mdl_kernel.mdl_log_prob(x, p, path="tiled")
+    assert torch.equal(tiled, mdl_kernel.mdl_log_prob(x, p, path="direct"))
+    want = mixture_log_prob(x, p.float())
+    assert ((tiled - want).abs() <= 2e-4 + 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nchw", "misaligned", "sliced"])
+def test_forward_takes_the_direct_path_off_the_tile_layout(cuda, layout, dtype):
+    """NCHW strides, a view one element off a 16-byte boundary and a channel
+    slice take the direct path and agree with the tile path on the same
+    values bit for bit; asked for the tile path they are refused, and
+    nothing is launched."""
+    x, dense = _inputs(cuda, dtype=dtype)
+    if layout == "nchw":
+        p = _nchw(dense)
+    elif layout == "misaligned":
+        p = _misaligned_like(dense)
+    else:
+        wide = torch.zeros((3, 2, 5, 7, 60), device=cuda, dtype=dtype)
+        wide[..., :50] = dense
+        p = wide[..., :50]
+    assert mdl_kernel.forward_path(p) == "direct"
+    before = dict(mdl_kernel.launches_by_path)
+    got = mdl_kernel.mdl_log_prob(x, p)
+    assert mdl_kernel.launches_by_path == {**before, "direct": before["direct"] + 1}
+    assert torch.equal(got, mdl_kernel.mdl_log_prob(x, dense, path="tiled"))
+    before = dict(mdl_kernel.launches_by_path)
+    with pytest.raises(RuntimeError, match="tiled path"):
+        mdl_kernel.mdl_log_prob(x, p, path="tiled")
+    assert mdl_kernel.launches_by_path == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [5, 100])
+def test_direct_backward_equals_the_tile_path_on_nchw(cuda, k, dtype):
+    """The same values as NCHW (direct path, gradient parked through its own
+    strides in f32, in registers in bf16) and channel-minor (tile path): one
+    gradient, bit for bit."""
+    x, p = _card_inputs(cuda, k, 128, 32, 32, dtype, seed=k)
+    g = torch.randn((k, 128, 32, 32, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    nchw = _nchw(p)
+    assert mdl_kernel.backward_path(nchw, torch.empty_like(nchw)) == "direct"
+    before = dict(mdl_kernel.backward_launches_by_path)
+    tiled = mdl_kernel.mdl_backward(x, p, g)
+    direct = mdl_kernel.mdl_backward(x, nchw, g)
+    torch.cuda.synchronize()
+    assert mdl_kernel.backward_launches_by_path == {"tiled": before["tiled"] + 1,
+                                                    "direct": before["direct"] + 1}
+    assert direct.stride() == nchw.stride()
+    assert torch.equal(tiled, direct)
 
 
 @pytest.mark.parametrize("n_mix", [1, 5, 10])
@@ -477,6 +578,32 @@ def test_channel_sum_matches_plain_version(cuda, shape, layout, path, tile):
     assert (got - want).abs().max() <= 1e-4
 
 
+@pytest.mark.parametrize("shape", [(3, 50, 1024), (100, 50, 102400), (2, 7, 4096)])
+def test_channel_first_sum_takes_the_vec4_kernel(cuda, shape):
+    """A channel-first tensor with contiguous pixels in rows of a multiple of
+    512 takes the vec4 kernel and gives the strided kernel's bits; off its
+    layout it is refused."""
+    k, c, p = shape
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    params = torch.randn(shape, generator=gen, device=cuda)
+    assert io_probe.direct_kernel(params, "channel_first") == "vec4"
+    before = dict(io_probe.launches_by_kernel)
+    got = io_probe.channel_sum(params, "channel_first")
+    strided = io_probe.channel_sum(params, "channel_first", kernel="strided")
+    assert io_probe.launches_by_kernel == {**before, "vec4": before["vec4"] + 1,
+                                           "strided": before["strided"] + 1}
+    assert torch.equal(got, strided)
+    assert (got - io_probe.channel_sum_plain(params, "channel_first")).abs().max() <= 1e-4
+    del params
+    odd = torch.randn((k, c, p + 2), generator=gen, device=cuda)
+    for view in (odd[..., :p - 1], odd[..., 1:p + 1], odd[..., :p + 2]):
+        assert io_probe.direct_kernel(view, "channel_first") == "strided"
+        got = io_probe.channel_sum(view, "channel_first")
+        assert (got - io_probe.channel_sum_plain(view, "channel_first")).abs().max() <= 1e-4
+        with pytest.raises(RuntimeError, match="vec4"):
+            io_probe.channel_sum(view, "channel_first", kernel="vec4")
+
+
 def test_channel_sum_direct_reads_through_any_strides(cuda):
     rng = np.random.default_rng(0)
     whole = torch.from_numpy(rng.standard_normal((3, 40, 60)).astype(np.float32)).to(cuda)
@@ -539,6 +666,27 @@ def test_null_kernels_refuse_what_they_do_not_take(cuda, bad):
         x = x[0]
     with pytest.raises((TypeError, ValueError)):
         mdl_null.mdl_null_backward(x, p, g, variant)
+
+
+def test_evaluate_llh_binarizes_a_bernoulli_model_once_a_batch(cuda):
+    """model01 on the card: ``evaluate_llh`` equals the evaluator with the
+    binarisation off fed the batch binarised by the same draw, and the draw
+    moves the result off that of the grey images."""
+    model = build_model(MODELS["model01"], torch.Generator().manual_seed(0)).eval()
+    ecfg = experiment("model01")
+    images = np.random.default_rng(0).integers(0, 256, (8, 28, 28, 1)).astype(np.uint8)
+    _, per_image, _ = evaluate_llh(model, ecfg, images, n_samples=200, k_chunk=100,
+                                   batch_size=8, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(_batch_seed(3, 0))
+    x = torch.as_tensor(images, device=cuda).float() / 255.0
+    binary = binarize(gen, x)
+    off = dataclasses.replace(ecfg, data=dataclasses.replace(ecfg.data,
+                                                           dynamic_binarization=False))
+    want = make_batch_evaluator(model, off, 200, 100)(binary, gen).cpu().numpy()
+    np.testing.assert_array_equal(per_image, want)
+    grey = make_batch_evaluator(model, off, 200, 100)(
+        x, torch.Generator(device=cuda).manual_seed(_batch_seed(3, 0))).cpu().numpy()
+    assert np.isfinite(per_image).all() and not np.allclose(per_image, grey)
 
 
 def test_timing_harness_lands_on_the_card_by_default(cuda):

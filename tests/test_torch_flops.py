@@ -74,11 +74,10 @@ def test_train_transcendentals_equal_jax(n_mix):
 def test_cuda_census_follows_the_cuda_sources():
     """With every cascade in the CDF-difference branch the CUDA forward makes
     the Pallas census' calls less its softplus (the CUDA cascade branches,
-    ``jnp.where`` evaluates every side). The backward's tile path evaluates
-    each cascade once for value and derivatives: the forward's calls less
-    its last log. The direct path recomputes the forward's weights and then
-    the derivatives; what its second pass writes again unconditionally (tanh,
-    exp(-logscale), the softmaxes' exponentials) counts once."""
+    ``jnp.where`` evaluates every side). The backward evaluates each cascade
+    once for value and derivatives: the forward's calls less its last log,
+    and the derivatives' sigmoids; one body, so one census for both memory
+    paths."""
     n, pixels = 5, 7
     cdf = {"right": 0, "left": 0, "cdf": 3 * n * pixels, "pdf": 0}
     census = flops.mdl_transcendental_census(n)
@@ -86,16 +85,11 @@ def test_cuda_census_follows_the_cuda_sources():
     assert fwd == {op: float(0 if op == "softplus" else c * pixels)
                    for op, c in census["fwd"].items()}
     bwd = flops.mdl_cuda_transcendentals(cdf, pixels, n, backward=True)
-    assert bwd == flops.mdl_cuda_transcendentals(cdf, pixels, n, backward=True, path="tiled")
     assert bwd == {"tanh": 3.0 * n * pixels, "exp": 5.0 * n * pixels,
                    "sigmoid": 6.0 * n * pixels, "softplus": 0.0,
                    "log": (3.0 * n + 1) * pixels}
-    direct = flops.mdl_cuda_transcendentals(cdf, pixels, n, backward=True, path="direct")
-    assert direct == {"tanh": 3.0 * n * pixels, "exp": 5.0 * n * pixels,
-                      "sigmoid": 12.0 * n * pixels, "softplus": 0.0,
-                      "log": (3.0 * n + 1) * pixels}
-    with pytest.raises(ValueError, match="path"):
-        flops.mdl_cuda_transcendentals(cdf, pixels, n, backward=True, path="staged")
+    with pytest.raises(TypeError, match="path"):
+        flops.mdl_cuda_transcendentals(cdf, pixels, n, backward=True, path="direct")
     # by branch, as csrc/dl_cascade.cuh reads: an edge bin is an exp and a
     # softplus; the PDF branch two sigmoids and a softplus
     mixed = {"right": 2, "left": 3, "cdf": 5, "pdf": 7}
@@ -111,27 +105,28 @@ def test_cuda_census_follows_the_cuda_sources():
 
 
 @pytest.mark.parametrize("n_mix", [1, 5, 10])
-def test_fused_backward_never_counts_more_than_the_direct_one(n_mix):
-    """Branch by branch the tile path makes the direct path's calls less the
-    second evaluation's shared pair of sigmoids."""
+def test_backward_census_is_the_forwards_plus_the_derivatives(n_mix):
+    """Branch by branch the backward makes the forward's calls less the
+    weights' last log, plus the derivatives' sigmoids beyond the shared pair:
+    one in an edge bin, one in the PDF branch, none in the CDF difference."""
     pixels = 11
-    for branch in ("right", "left", "cdf", "pdf"):
+    for branch, extra in (("right", 1), ("left", 1), ("cdf", 0), ("pdf", 1)):
         counts = dict.fromkeys(("right", "left", "cdf", "pdf"), 0)
         counts[branch] = 3 * n_mix * pixels
-        tiled = flops.mdl_cuda_transcendentals(counts, pixels, n_mix, backward=True)
-        direct = flops.mdl_cuda_transcendentals(counts, pixels, n_mix, backward=True,
-                                                path="direct")
-        shared = 2.0 * counts[branch] if branch in ("cdf", "pdf") else 0.0
-        assert tiled == {**direct, "sigmoid": direct["sigmoid"] - shared}
+        forward = flops.mdl_cuda_transcendentals(counts, pixels, n_mix)
+        backward = flops.mdl_cuda_transcendentals(counts, pixels, n_mix, backward=True)
+        assert backward == {**forward, "log": forward["log"] - pixels,
+                            "sigmoid": forward["sigmoid"] + extra * counts[branch]}
 
 
 def test_sass_count_of_the_modl_kernels():
     """The EX2 instructions a kernel's listing holds, every branch once: at
-    n_mix = 5 the forward's 115 and the direct backward's 190 are what the
-    H100 builds showed; the tile path's fused sweep lists 160."""
+    n_mix = 5 the forward's 115 is what the H100 builds showed, on either
+    memory path; the backward's fused sweep lists 160 (the first version's
+    two passes listed 190)."""
     assert flops.mdl_cuda_sass_ex2(5) == 115
-    assert flops.mdl_cuda_sass_ex2(5, backward=True, path="direct") == 190
     assert flops.mdl_cuda_sass_ex2(5, backward=True) == 160
+    assert flops.mdl_cuda_sass_ex2(10) == 230
     assert flops.mdl_cuda_sass_ex2(10, backward=True) == 320
 
 

@@ -213,22 +213,25 @@ def test_backward_refuses_an_unknown_path_and_a_cuda_path_for_cpu_tensors():
         mdl_null.mdl_null_backward(x, p, g, "tiled")
     for variant in mdl_null.VARIANTS:  # the CPU takes the plain version all the same
         assert torch.equal(mdl_null.mdl_null_backward(x, p, g, variant), g + 0.5 * p)
-    assert set(mdl_kernel.backward_launches_by_path) == set(mdl_kernel.BACKWARD_PATHS)
-    assert set(mdl_null.backward_launches_by_path) == set(mdl_kernel.BACKWARD_PATHS)
+    assert set(mdl_kernel.backward_launches_by_path) == set(mdl_kernel.PATHS)
+    assert set(mdl_null.backward_launches_by_path) == set(mdl_kernel.PATHS)
 
 
 def test_kernel_outputs_are_seeded_and_compare_bit_for_bit(tmp_path, monkeypatch, capsys):
     """``probes.kernel_outputs`` at a small size on the CPU (the plain
     versions): two runs give the same outputs, every kernel and case is
     there, and ``compare`` tells an altered file from an equal one."""
-    small = kernel_outputs.outputs("cpu", k=2, batch=3, side=4)
-    again = kernel_outputs.outputs("cpu", k=2, batch=3, side=4)
-    assert len(small) == 11 and set(small) == set(again)
+    size = dict(k=2, batch=3, side=4, k_eval=3, batch_eval=2, sum_shape=(2, 5, 8))
+    small = kernel_outputs.outputs("cpu", **size)
+    again = kernel_outputs.outputs("cpu", **size)
+    assert len(small) == 16 and set(small) == set(again)
     for name, value in small.items():
         assert torch.isfinite(value.float()).all(), name
         assert torch.equal(value, again[name]), name
     assert small["mdl_log_prob_backward bfloat16 nchw"].dtype == torch.bfloat16
     assert small["mdl_log_prob float32 nhwc"].shape == (2, 3, 4, 4, 1)
+    assert small["mdl_log_prob k=3 bfloat16 nchw"].shape == (3, 2, 4, 4, 1)
+    assert small["channel_sum channel_first"].shape == (2, 8)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(kernel_outputs, "outputs", lambda: small)

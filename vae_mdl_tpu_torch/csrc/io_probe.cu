@@ -3,7 +3,8 @@
 // channel_sum replaces the Pallas probes of scripts/kernel_isolate.py (make,
 // bodies dma_only and transpose_sum: a per-pixel sum over the channels of a
 // channel-minor [K, P, C] tensor) and of scripts/kernel_isolate2.py (main: the
-// same sum from a channel-first [K, C, P] tensor). mdl_null_forward and
+// same sum from a channel-first [K, C, P] tensor, which takes the vec4
+// kernel: 16-byte loads, a warp walking 2 KB of each row, many in flight). mdl_null_forward and
 // mdl_null_backward replace scripts/kernel_structure_probe.py make_variant
 // (bodies fwd_dma/bwd_dma and fwd_tr/bwd_tr): kernels with the arguments,
 // strides, dtypes, launch shape and addressing (mdl_addressing.cuh) of
@@ -78,6 +79,45 @@ __global__ void channel_sum_direct_kernel(const float* __restrict__ p, float* __
     for (int c = 0; c < C; ++c) acc += pp[c * s_c];
     out[i] = acc;
   }
+}
+
+// Channel-first [K, C, P] with pixel stride 1 (P a multiple of 512, the
+// channel and sample strides multiples of 4, a 16-byte aligned base, every
+// offset below 2^31): 16-byte loads of four pixels, 32-bit index arithmetic. A
+// warp sums 512 consecutive pixels of a row, a thread kSumGroups groups of
+// four 32 groups apart, so that each of the warp's loads is 512 consecutive
+// bytes and it walks 2 KB of each channel's row; the channel loop is unrolled
+// so that 20 independent loads are in flight. The grid covers K * P / 4
+// groups once. Each pixel's channels add in the order the strided kernel adds
+// them, so the two give the same bits.
+constexpr int kSumGroups = 4;
+constexpr int kSumWarpPixels = 32 * kSumGroups * 4;
+
+__global__ void channel_sum_vec4_kernel(const float* __restrict__ p, float* __restrict__ out,
+                                        int P4, int n4, int C, int s_k4, int s_c4) {
+  // the warp's first group; a row holds whole warps' worth of groups
+  const int base = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * (32 * kSumGroups);
+  if (base >= n4) return;
+  const int lane = threadIdx.x % 32;
+  const int k = base / P4;
+  const float4* src = reinterpret_cast<const float4*>(p) + k * s_k4 + (base - k * P4) + lane;
+  float4 acc[kSumGroups];
+#pragma unroll
+  for (int g = 0; g < kSumGroups; ++g) acc[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 5
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int g = 0; g < kSumGroups; ++g) {
+      const float4 v = __ldg(src + c * s_c4 + 32 * g);
+      acc[g].x += v.x;
+      acc[g].y += v.y;
+      acc[g].z += v.z;
+      acc[g].w += v.w;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kSumGroups; ++g)
+    reinterpret_cast<float4*>(out)[base + lane + 32 * g] = acc[g];
 }
 
 // Contiguous channel-minor [rows, C]: a block stages blockDim.x rows.
@@ -288,21 +328,37 @@ cudaError_t launch_null_backward(dim3 grid, cudaStream_t s, const float* x, cons
 
 // params: float32 [K, P, C] read through element strides (s_k, s_p, s_c), so
 // a channel-first [K, C, P] tensor is the same call with its strides; out:
-// contiguous float32 [K, P]. staged = 1 needs the contiguous channel-minor
-// layout and stages `tile` pixels (the block size: 32..1024, a multiple of
-// 32) through shared memory. Returns a cudaError_t (0 = launched).
-extern "C" int channel_sum(const void* params, void* out, int staged, int tile, int64_t K,
+// contiguous float32 [K, P]. The caller names the kernel: 0 strided (any
+// strides, one thread a pixel); 1 staged (the contiguous channel-minor layout,
+// `tile` pixels a block, 32..1024 and a multiple of 32, through shared
+// memory); 2 vec4 (channel-first with pixel stride 1 and rows of a multiple
+// of 512 pixels, 16-byte loads, see channel_sum_vec4_kernel). Asked for a kernel the operands do not fit,
+// it returns cudaErrorInvalidValue. Returns a cudaError_t (0 = launched).
+extern "C" int channel_sum(const void* params, void* out, int kernel, int tile, int64_t K,
                            int64_t P, int64_t C, int64_t s_k, int64_t s_p, int64_t s_c,
                            void* stream) {
   const int64_t total = K * P;
   if (total <= 0) return cudaSuccess;
-  if (C < 1 || C > (1 << 20)) return cudaErrorInvalidValue;
+  if (C < 1 || C > (1 << 20) || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(params);
   float* o = static_cast<float*>(out);
-  if (!staged) {
+  if (kernel == 0) {
     channel_sum_direct_kernel<<<mdla::grid_for(total), dim3(kThreads), 0, s>>>(
         p, o, K, P, static_cast<int>(C), s_k, s_p, s_c);
+    return cudaGetLastError();
+  }
+  if (kernel == 2) {
+    const int64_t span = (K - 1) * s_k + (C - 1) * s_c + P;
+    if (s_p != 1 || P % kSumWarpPixels || s_c % 4 || s_k % 4 || s_c < 0 || s_k < 0 ||
+        span > 0x7fffffffLL || !mdlt::aligned16(params) || !mdlt::aligned16(out))
+      return cudaErrorInvalidValue;
+    const int64_t n4 = total / 4;
+    const int64_t per_block = static_cast<int64_t>(kThreads) * kSumGroups;  // groups
+    const dim3 grid(static_cast<unsigned>((n4 + per_block - 1) / per_block));
+    channel_sum_vec4_kernel<<<grid, dim3(kThreads), 0, s>>>(
+        p, o, static_cast<int>(P / 4), static_cast<int>(n4), static_cast<int>(C),
+        static_cast<int>(s_k / 4), static_cast<int>(s_c / 4));
     return cudaGetLastError();
   }
   if (s_c != 1 || s_p != C || s_k != P * C) return cudaErrorInvalidValue;

@@ -1,17 +1,20 @@
-// The tile path of the MoDL backward and of its null-body twin: a block's
-// tile of pixels travels device memory -> shared memory -> device memory as
-// whole runs of bytes, moved by Hopper's bulk asynchronous copies. Shared by
-// mdl_log_prob.cu (the gradient math as the body) and io_probe.cu (the null
-// body), so the two have one memory path by construction.
+// The tile path of the MoDL kernels and of the null-body twin of the
+// backward: a block's tile of pixels travels device memory -> shared memory
+// (-> device memory, for a gradient) as whole runs of bytes, moved by
+// Hopper's bulk asynchronous copies. Shared by mdl_log_prob.cu (the forward
+// and the gradient math as bodies) and io_probe.cu (the null body), so they
+// have one memory path by construction: for_each_tile, which writes the
+// body's result over the tile and stores it, and for_each_tile_read, its
+// read-only sibling for the forward, which stores one float a pixel.
 //
-// When it applies. Parameters and gradient are both dense and channel-minor
+// When it applies. Parameters (and the gradient) are dense and channel-minor
 // over [K, B, H, W, C] (s_c = 1, s_w = C, s_h = W C, s_b = H W C,
 // s_k = B H W C; a dimension of one element may have any stride) and both
 // base pointers are 16-byte aligned: kTilePixels consecutive pixels are then
 // one run of kTilePixels * C * sizeof(T) bytes (C = 50: 25,600 B in f32,
 // 12,800 B in bf16). `channel_minor_dense` and `aligned16` are that test; the
-// wrappers make the same one in Python (ops/cuda/mdl_kernel.py backward_path)
-// and pass their choice in, and a C entry point asked for the tile path on
+// wrappers make the same one in Python (ops/cuda/mdl_kernel.py forward_path,
+// backward_path) and pass their choice in, and a C entry point asked for the tile path on
 // operands that do not fit returns cudaErrorInvalidValue. Every other layout
 // takes the direct path.
 //
@@ -35,13 +38,21 @@
 //   (shared -> global) for the tile and commits it; before the next load it
 //   waits until that store has read the buffer
 //   (cp.async.bulk.wait_group.read).
-// - One buffer a block: it loads, computes and stores a tile at a time, and
-//   the SM's other blocks fill the gaps. That is the least shared memory a
-//   block, so the most blocks an SM (eight in f32 at C = 50). A second and a
-//   third buffer, with the next tile arriving while this one is computed,
-//   were measured and lost in every case (PERF.md): the gradient math is
-//   bound by latency and gains more from resident warps than from overlap
-//   inside a block, and the null body does not care.
+// - One buffer a block: it loads, computes (and stores) a tile at a time,
+//   and the SM's other blocks fill the gaps. That is the least shared memory
+//   a block, so the most blocks an SM (eight in f32 at C = 50). A second and
+//   a third buffer, with the next tile arriving while this one is computed,
+//   were measured and lost in every case, for the backward and for the
+//   forward, which has no store to wait for (PERF.md): the math is bound by
+//   latency and gains more from resident warps than from overlap inside a
+//   block, and the null body does not care. A tile a warp, each warp with
+//   its own buffer and barrier and no block-wide synchronisation, lost to
+//   the block's tile in the forward too.
+// - The read-only walk (the forward): the same grid, residency, barrier and
+//   bulk load; no store to wait for. A thread computes its pixel's value from
+//   its row and writes it to out[pixel] (consecutive threads, consecutive
+//   floats); the block synchronises once every thread has read its row, and
+//   the buffer takes the next tile.
 // - The ragged last tile (fewer than kTilePixels pixels, a run that need not
 //   be a multiple of 16 bytes) is moved by the block's threads element by
 //   element, in the order memory lies; threads past its end do nothing.
@@ -77,6 +88,17 @@ struct Operands {
   int64_t gs_k, gs_b, gs_h, gs_w;
 };
 
+// The same for the read-only walk: out is contiguous float32 [K, B, H, W].
+template <typename T>
+struct ReadOperands {
+  const float* x;
+  const T* p;
+  float* out;
+  int C;
+  int64_t K, B, H, W;
+  int64_t xs_b, xs_h, xs_w, xs_c;
+};
+
 // Whether [K, B, H, W, C] with these element strides is dense channel-minor.
 inline bool channel_minor_dense(int64_t K, int64_t B, int64_t H, int64_t W, int64_t C,
                                 int64_t s_k, int64_t s_b, int64_t s_h, int64_t s_w,
@@ -96,6 +118,11 @@ __host__ __device__ __forceinline__ int scratch_row(int C) { return C | 1; }
 inline size_t smem_bytes(int C, size_t element, bool scratch) {
   return kTilePixels * static_cast<size_t>(C) * element +
          (scratch ? kTilePixels * scratch_row(C) * sizeof(float) : 0) + 8;
+}
+
+// The read-only walk's: the tile and its mbarrier.
+inline size_t read_smem_bytes(int C, size_t element) {
+  return kTilePixels * static_cast<size_t>(C) * element + 8;
 }
 
 // What the current device holds of a kernel at once.
@@ -144,15 +171,13 @@ inline cudaError_t residency(const void* kernel, size_t smem, Residency* out) {
   return err;
 }
 
-// Launch a tile-path kernel (a __global__ function of one Operands<T>, built
-// on for_each_tile with this use of scratch rows) on its persistent grid:
-// the blocks the card holds at once, at most one a tile.
-template <typename T>
-cudaError_t launch(void (*kernel)(Operands<T>), bool scratch, cudaStream_t stream,
-                   const Operands<T>& a) {
+// Launch a tile-path kernel (a __global__ function of one Operands<T> or
+// ReadOperands<T>) with `smem` bytes of dynamic shared memory on its
+// persistent grid: the blocks the card holds at once, at most one a tile.
+template <typename A>
+cudaError_t launch_persistent(void (*kernel)(A), size_t smem, cudaStream_t stream, const A& a) {
   const int64_t total = a.K * a.B * a.H * a.W;
   const int64_t n_tiles = (total + kTilePixels - 1) / kTilePixels;
-  const size_t smem = smem_bytes(a.C, sizeof(T), scratch);
   Residency r;
   const cudaError_t err = residency(reinterpret_cast<const void*>(kernel), smem, &r);
   if (err != cudaSuccess) return err;
@@ -162,15 +187,38 @@ cudaError_t launch(void (*kernel)(Operands<T>), bool scratch, cudaStream_t strea
   return cudaGetLastError();
 }
 
-// Blocks an SM of the current device holds of that kernel at width C, as its
-// launches size their grid; 0 where the query is refused.
+// A kernel built on for_each_tile with this use of scratch rows.
+template <typename T>
+cudaError_t launch(void (*kernel)(Operands<T>), bool scratch, cudaStream_t stream,
+                   const Operands<T>& a) {
+  return launch_persistent(kernel, smem_bytes(a.C, sizeof(T), scratch), stream, a);
+}
+
+// A kernel built on for_each_tile_read.
+template <typename T>
+cudaError_t launch(void (*kernel)(ReadOperands<T>), cudaStream_t stream,
+                   const ReadOperands<T>& a) {
+  return launch_persistent(kernel, read_smem_bytes(a.C, sizeof(T)), stream, a);
+}
+
+// Blocks an SM of the current device holds of a tile-path kernel with `smem`
+// bytes of dynamic shared memory, as its launches size their grid; 0 where
+// the query is refused.
+inline int blocks_per_sm(const void* kernel, size_t smem) {
+  Residency r;
+  return residency(kernel, smem, &r) == cudaSuccess ? r.blocks_per_sm : 0;
+}
+
+// The same for a for_each_tile kernel at width C ...
 template <typename T>
 int blocks_per_sm(void (*kernel)(Operands<T>), int C, bool scratch) {
-  Residency r;
-  return residency(reinterpret_cast<const void*>(kernel), smem_bytes(C, sizeof(T), scratch),
-                   &r) == cudaSuccess
-             ? r.blocks_per_sm
-             : 0;
+  return blocks_per_sm(reinterpret_cast<const void*>(kernel), smem_bytes(C, sizeof(T), scratch));
+}
+
+// ... and for a for_each_tile_read one.
+template <typename T>
+int blocks_per_sm(void (*kernel)(ReadOperands<T>), int C) {
+  return blocks_per_sm(reinterpret_cast<const void*>(kernel), read_smem_bytes(C, sizeof(T)));
 }
 
 // -- PTX: mbarrier and bulk asynchronous copies -----------------------------------
@@ -339,6 +387,59 @@ __device__ __forceinline__ void for_each_tile(const Operands<T>& a, unsigned cha
     }
   }
   if (tid == 0) bulk_wait_read();
+}
+
+// The read-only walk. For each pixel of a tile, its thread stores
+//   out[pixel] = body(row, x0, x1, x2)
+// with `row` the pixel's C parameters in shared memory and x0..x2 its image
+// values as stored. `smem` is the kernel's dynamic shared memory,
+// read_smem_bytes() long and 128-byte aligned.
+template <typename T, typename Body>
+__device__ __forceinline__ void for_each_tile_read(const ReadOperands<T>& a, unsigned char* smem,
+                                                   Body body) {
+  const int C = a.C;
+  const uint32_t tile_bytes = static_cast<uint32_t>(kTilePixels * C * sizeof(T));
+  T* buffer = reinterpret_cast<T*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + tile_bytes);
+
+  const int64_t total = a.K * a.B * a.H * a.W;
+  const int64_t n_tiles = (total + kTilePixels - 1) / kTilePixels;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbarrier_init(full, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  int it = 0;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int64_t first = tile * kTilePixels;
+    const int n = static_cast<int>(total - first < kTilePixels ? total - first : kTilePixels);
+    if (tid == 0 && n == kTilePixels) {
+      mbarrier_arrive_expect_tx(full, tile_bytes);
+      bulk_load(buffer, a.p + first * C, tile_bytes, full);
+    }
+    const bool mine = tid < n;
+    float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+    if (mine) {
+      const mdla::Pixel px = pixel_of(first + tid, total, a.B, a.H, a.W);
+      const float* xp = a.x + mdla::image_offset(px, a.xs_b, a.xs_h, a.xs_w);
+      x0 = xp[0];
+      x1 = xp[a.xs_c];
+      x2 = xp[2 * a.xs_c];
+    }
+    if (n == kTilePixels) {
+      mbarrier_wait(full, it & 1);
+    } else {
+      // the ragged tile, the last of all: no copy is in flight into the buffer
+      const T* src = a.p + first * C;
+      for (int e = tid; e < n * C; e += kTilePixels) buffer[e] = src[e];
+      __syncthreads();
+    }
+    if (mine) a.out[first + tid] = body(buffer + tid * C, x0, x1, x2);
+    // every row read before the buffer takes another tile
+    __syncthreads();
+  }
 }
 
 }  // namespace mdlt

@@ -12,7 +12,12 @@ from ``vae_mdl_tpu/evaluation/harness.py`` for one process on one device:
   version recomputes it per chunk; the numbers are the same), and the upper
   stochastic layers are sampled per chunk from it;
 - each batch draws from its own generator, seeded from ``(seed, batch
-  index)``, so a batch's result does not depend on the batches before it.
+  index)``, so a batch's result does not depend on the batches before it;
+- a Bernoulli model whose data is binarised dynamically
+  (``dynamic_binarization``) is evaluated on one fixed binarisation of each
+  batch, drawn once from the batch's generator before any sample noise, as
+  the reference folds key 0 for it and key 1 for the samples: the encoder,
+  every k-chunk and the likelihood see the same binary images.
 
 The PSIS k-hat, the convergence curve and the mesh options are not ported
 yet (ROADMAP.md Queue 1).
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from vae_mdl_tpu_torch.config import ExperimentConfig
+from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.models.objective import log_weights
 from vae_mdl_tpu_torch.models.vae import prior_for
 from vae_mdl_tpu_torch.ops.math import (
@@ -46,21 +52,29 @@ def effective_chunks(n_samples: int, k_chunk: int) -> Tuple[int, int]:
 
 def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
                          k_chunk: int = 100):
-    """Returns ``batch_llh(batch, generator=None, eps=None) -> llh [B]``.
+    """Returns ``batch_llh(batch, generator=None, eps=None, u=None) -> llh [B]``.
 
     ``batch``: uint8 images (scaled by 1/255) or floats in [0, 1],
     ``[B, H, W, C]``, on the model's device. The standard-normal draws come
     from ``generator``, or from ``eps`` ``[n_chunks, k_chunk, B, n_latent]``
     (z_1's noise, or a sequence with one such tensor per stochastic layer).
+    Where the model is a Bernoulli on dynamically binarised data, the batch
+    is binarised once, before any sample noise: ``x = (u < x)`` with ``u``
+    uniform on [0, 1) ``[B, H, W, C]``, drawn from ``generator`` or injected
+    as ``u`` (a binary batch is its own binarisation whatever ``u``).
     """
     k_chunk, n_chunks = effective_chunks(n_samples, k_chunk)
+    binarize_input = cfg.model.likelihood == "bernoulli" and cfg.data.dynamic_binarization
 
     def batch_llh(batch: torch.Tensor, generator: Optional[torch.Generator] = None,
-                  eps=None) -> torch.Tensor:
+                  eps=None, u: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.inference_mode():
             x = batch.float()
             if not batch.is_floating_point():
                 x = x / 255.0
+            if binarize_input:
+                # one fixed draw per evaluation, the same in every k-chunk
+                x = binarize(generator, x) if u is None else (u < x).float()
             prior = prior_for(cfg.model, x.device)
             q = model.encoder(x)
             state = streaming_logmeanexp_init((x.shape[0],), device=x.device)

@@ -12,17 +12,27 @@ memory through the tensor's strides, ``path="staged"`` moves a tile of
 contiguous only). The TPU probes return ``[K, P / bp, 1, bp]``, their block
 tiling; here the result is ``[K, P]``, the same numbers.
 
+The direct path has two kernels, chosen by ``direct_kernel`` from the
+tensor's strides and address alone: ``"vec4"`` for a channel-first tensor
+whose pixels are contiguous (rows a multiple of ``VEC4_ROW`` pixels, channel
+and sample strides multiples of 4, a 16-byte aligned base, offsets within
+32 bits): 16-byte loads of four pixels, a warp summing 512 pixels of a row,
+so that it walks 2 KB of each channel's row with 20 loads in flight;
+``"strided"``, one thread a pixel through any strides, for everything else.
+The choice goes to the C entry point, which refuses a kernel the tensor does
+not fit.
+
 ``channel_sum`` takes the plain version ``channel_sum_plain`` for CPU tensors
 and launches the kernel (``channel_sum_cuda``) for CUDA tensors, which
 raises on what it does not take; there is no fallback between them.
 ``launches`` counts the kernel's launches, ``launches_by_path`` the same by
-(layout, path).
+(layout, path) and ``launches_by_kernel`` by kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,14 +41,18 @@ from vae_mdl_tpu_torch.ops.cuda.build import CSRC, build
 SOURCE = CSRC / "io_probe.cu"
 LAYOUTS = ("channel_minor", "channel_first")
 PATHS = ("direct", "staged")
+KERNELS = ("strided", "staged", "vec4")  # the C entry point's numbering
+VEC4_ROW = 512  # pixels a warp of the vec4 kernel sums: its rows are whole warps' worth
 # shared memory a block can use on Hopper (227 KB); a staged tile holds `tile`
 # rows of C float32 values padded to an odd length
 MAX_SHARED_BYTES = 232_448
 
 # kernel launches since the counter was last set to 0, and the same by
-# (layout, path): the two probes and their memory paths share the one kernel
+# (layout, path) and by kernel: the two probes and their memory paths share
+# the one entry point
 launches = 0
 launches_by_path: Dict[Tuple[str, str], int] = {}
+launches_by_kernel: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 @functools.cache
@@ -70,15 +84,38 @@ def channel_sum_plain(params: torch.Tensor, layout: str = "channel_minor") -> to
     return params.sum(dim=_channel_dim(layout))
 
 
+def direct_kernel(params: torch.Tensor, layout: str = "channel_minor") -> str:
+    """The direct path's kernel for this tensor, from its strides and address
+    alone: ``"vec4"`` for a ``[K, C, P]`` channel-first float32 tensor with
+    pixel stride 1, ``P`` a multiple of ``VEC4_ROW``, the channel and the
+    sample stride multiples of 4, a 16-byte aligned base and every element
+    offset below 2^31; ``"strided"`` for anything else."""
+    if layout != "channel_first" or params.dim() != 3 or params.dtype != torch.float32:
+        return "strided"
+    k, c, p = params.shape
+    s_k, s_c, s_p = params.stride()
+    span = (k - 1) * s_k + (c - 1) * s_c + p
+    fits = (params.numel() > 0 and s_p == 1 and p % VEC4_ROW == 0 and s_c % 4 == 0
+            and s_k % 4 == 0 and params.data_ptr() % 16 == 0 and span < 2 ** 31)
+    return "vec4" if fits else "strided"
+
+
 def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
-                     path: str = "direct", tile: int = 256) -> torch.Tensor:
+                     path: str = "direct", tile: int = 256,
+                     kernel: Optional[str] = None) -> torch.Tensor:
     """The kernel: a float32 CUDA tensor ``[K, P, C]`` (channel-minor) or
     ``[K, C, P]`` (channel-first), any strides on the direct path, contiguous
-    channel-minor on the staged one -> contiguous ``[K, P]`` float32."""
+    channel-minor on the staged one -> contiguous ``[K, P]`` float32.
+    ``kernel`` names the direct path's kernel; ``None`` takes
+    ``direct_kernel``'s choice, and ``"vec4"`` on a tensor that does not fit
+    it raises."""
     global launches
     channel_dim = _channel_dim(layout)
     if path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}; got {path!r}")
+    if kernel is not None and (path != "direct" or kernel not in ("strided", "vec4")):
+        raise ValueError(f"the direct path's kernel is 'strided' or 'vec4'; got {kernel!r} "
+                         f"on the {path} path")
     if not params.is_cuda:
         raise ValueError(f"the channel-sum kernel takes CUDA tensors only; got {params.device}")
     if params.dtype != torch.float32 or params.dim() != 3:
@@ -98,21 +135,23 @@ def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
                          f"bytes of shared memory; a block has {MAX_SHARED_BYTES}")
     out = torch.empty((k, p), device=params.device, dtype=torch.float32)
     if out.numel():
+        kernel = "staged" if staged else kernel or direct_kernel(params, layout)
         with torch.cuda.device(params.device):
-            err = library().channel_sum(params.data_ptr(), out.data_ptr(), int(staged), tile,
-                                        k, p, c, s_k, s_p, s_c,
+            err = library().channel_sum(params.data_ptr(), out.data_ptr(),
+                                        KERNELS.index(kernel), tile, k, p, c, s_k, s_p, s_c,
                                         torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"channel_sum kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"channel_sum kernel launch ({kernel}) failed: CUDA error {err}")
         launches += 1
         launches_by_path[layout, path] = launches_by_path.get((layout, path), 0) + 1
+        launches_by_kernel[kernel] += 1
     return out
 
 
 def channel_sum(params: torch.Tensor, layout: str = "channel_minor", path: str = "direct",
-                tile: int = 256) -> torch.Tensor:
+                tile: int = 256, kernel: Optional[str] = None) -> torch.Tensor:
     """Per-pixel sum over the channels: the plain version for CPU tensors,
     the kernel for CUDA tensors."""
     if params.device.type == "cpu":
         return channel_sum_plain(params, layout)
-    return channel_sum_cuda(params, layout, path, tile)
+    return channel_sum_cuda(params, layout, path, tile, kernel)

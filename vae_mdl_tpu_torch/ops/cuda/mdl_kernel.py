@@ -9,18 +9,21 @@ and ``_backward_params_bl_kgrid`` another, both in ``csrc/mdl_log_prob.cu``,
 reading the head's output where it lies. The source's header says what
 bounds them and how they are laid out.
 
-The backward has two memory paths, chosen by ``backward_path`` from the
-operands' strides, dtype and addresses alone. ``"tiled"``: parameters and
-gradient dense and channel-minor (what the model's channels-last head hands
-on) and 16-byte aligned; a tile of ``TILE_PIXELS`` pixels is then one run of
-bytes, which persistent blocks bring into shared memory with a bulk
-asynchronous copy and send back with one bulk store, each cascade evaluated
-once for its value and its derivatives
-(``csrc/mdl_tile.cuh``; ``tiles_of`` is the blocks' schedule). ``"direct"``:
-any other strides (NCHW, a sliced or misaligned view), one thread a pixel
-through the strides, coalesced in NCHW. The choice goes to the C entry point
-as an argument, and asking for ``"tiled"`` on operands that do not fit
-raises: nothing tries one path after the other. Both give the same bits.
+Each direction has two memory paths, chosen by ``forward_path`` and
+``backward_path`` from the operands' strides, dtype and addresses alone.
+``"tiled"``: parameters (and gradient) dense and channel-minor (what the
+model's channels-last head hands on) and 16-byte aligned; a tile of
+``TILE_PIXELS`` pixels is then one run of bytes, which persistent blocks
+bring into shared memory with a bulk asynchronous copy (``csrc/mdl_tile.cuh``;
+``tiles_of`` is the blocks' schedule); the forward stores one float a pixel
+from there, the backward writes the gradient over the tile and sends it back
+with one bulk store. ``"direct"``: any other strides (NCHW, a sliced or
+misaligned view), one thread a pixel through the strides, coalesced in NCHW.
+The choice goes to the C entry point as an argument, and asking for
+``"tiled"`` on operands that do not fit raises: nothing tries one path after
+the other. Each direction runs one body on both paths (the backward's
+evaluates each cascade once for its value and its derivatives), so the two
+paths give the same bits.
 
 - ``mdl_log_prob(x01, parameters)`` is the drop-in for
   ``distributions.mixture.mixture_log_prob``: CPU tensors take that plain
@@ -39,8 +42,9 @@ raises: nothing tries one path after the other. Both give the same bits.
   source, the shared header and the flags) and loaded with ``ctypes``; nothing
   is built or loaded at import.
 - ``launches`` and ``backward_launches`` count the two kernels' launches,
-  ``backward_launches_by_path`` the backward's by memory path; callers reset
-  them to 0 and read them to show that a run went through the kernels.
+  ``launches_by_path`` and ``backward_launches_by_path`` the same by memory
+  path; callers reset them to 0 and read them to show that a run went
+  through the kernels.
 """
 from __future__ import annotations
 
@@ -61,14 +65,15 @@ SOURCE = _build.CSRC / "mdl_log_prob.cu"
 MAX_MIX = 10
 _INTERVAL_WIDTH = 2.0 / 255.0  # 256 levels on [-1, 1]
 
-BACKWARD_PATHS = ("tiled", "direct")
+PATHS = ("tiled", "direct")
 TILE_PIXELS = 128  # csrc/mdl_tile.cuh kTilePixels: pixels a tile, threads a block
 
 # kernel launches since the counter was last set to 0: forward, backward, and
-# the backward's by memory path
+# each by memory path
 launches = 0
 backward_launches = 0
-backward_launches_by_path: Dict[str, int] = dict.fromkeys(BACKWARD_PATHS, 0)
+launches_by_path: Dict[str, int] = dict.fromkeys(PATHS, 0)
+backward_launches_by_path: Dict[str, int] = dict.fromkeys(PATHS, 0)
 
 
 def library_path() -> Path:
@@ -80,8 +85,10 @@ def library_path() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(SOURCE)))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.mdl_log_prob_forward.argtypes = [ptr] * 3 + [i32] * 2 + [i64] * 13 + [ptr]
+    lib.mdl_log_prob_forward.argtypes = [ptr] * 3 + [i32] * 3 + [i64] * 13 + [ptr]
     lib.mdl_log_prob_forward.restype = i32
+    lib.mdl_log_prob_forward_tile_blocks_per_sm.argtypes = [i32] * 2
+    lib.mdl_log_prob_forward_tile_blocks_per_sm.restype = i32
     lib.mdl_log_prob_backward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 22 + [ptr]
     lib.mdl_log_prob_backward.restype = i32
     lib.mdl_log_prob_backward_tile_blocks_per_sm.argtypes = [i32] * 2
@@ -113,49 +120,56 @@ def _check(x01: torch.Tensor, parameters: torch.Tensor) -> None:
             f"match x's {tuple(x01.shape[:3])}")
 
 
-def _launch(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
+def _launch(x01: torch.Tensor, parameters: torch.Tensor,
+            path: Optional[str] = None) -> torch.Tensor:
     global launches
+    _check_path(path)
     _check(x01, parameters)
     k, b, h, w, c = parameters.shape
     out = torch.empty((k, b, h, w), device=parameters.device, dtype=torch.float32)
     if out.numel():
+        path = path or forward_path(parameters)
         with torch.cuda.device(parameters.device):
             err = _library().mdl_log_prob_forward(
                 x01.data_ptr(), parameters.data_ptr(), out.data_ptr(),
                 int(parameters.dtype == torch.bfloat16), c // 10,
+                int(path == "tiled"),
                 k, b, h, w, *x01.stride(), *parameters.stride(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"mdl_log_prob kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"mdl_log_prob kernel launch ({path} path) failed: "
+                               f"CUDA error {err}")
         launches += 1
+        launches_by_path[path] += 1
     return out.unsqueeze(-1)
 
 
-def _channel_minor_dense(t: torch.Tensor) -> bool:
-    """Dense with the last dimension fastest; a dimension of one element may
-    have any stride (``mdlt::channel_minor_dense``)."""
-    expected = 1
-    for size, stride in zip(reversed(t.shape), reversed(t.stride())):
-        if size != 1 and stride != expected:
-            return False
-        expected *= size
-    return True
+def _tile_operand(t: torch.Tensor) -> bool:
+    """What the tile path takes of one operand: a non-empty, dense,
+    channel-minor float32 or bfloat16 tensor on a 16-byte aligned address
+    (``is_contiguous`` ignores the stride of a dimension of one element, as
+    ``mdlt::channel_minor_dense`` does)."""
+    return (t.numel() > 0 and t.dtype in (torch.float32, torch.bfloat16)
+            and t.is_contiguous() and t.data_ptr() % 16 == 0)
+
+
+def forward_path(parameters: torch.Tensor) -> str:
+    """The memory path the forward kernel takes for these parameters, from
+    their strides, dtype and address alone: ``"tiled"`` where they are a
+    dense channel-minor ``[k, B, H, W, C]`` float32 or bfloat16 tensor on a
+    16-byte aligned address, so that ``TILE_PIXELS`` consecutive pixels are
+    one run of bytes a bulk copy can move; ``"direct"`` for anything else
+    (NCHW strides, a sliced or misaligned view) and for empty parameters,
+    which launch nothing."""
+    return "tiled" if _tile_operand(parameters) else "direct"
 
 
 def backward_path(parameters: torch.Tensor, dp: torch.Tensor) -> str:
     """The memory path the backward kernel takes for these parameters and
-    this gradient buffer, from their strides, dtype and addresses alone:
-    ``"tiled"`` where both are dense channel-minor ``[k, B, H, W, C]`` float32
-    or bfloat16 tensors of one dtype on 16-byte aligned addresses, so that
-    ``TILE_PIXELS`` consecutive pixels are one run of bytes a bulk copy can
-    move; ``"direct"`` for anything else (NCHW strides, a sliced or
-    misaligned view) and for empty operands, which launch nothing."""
-    fits = (parameters.numel() > 0
-            and parameters.dtype == dp.dtype
-            and parameters.dtype in (torch.float32, torch.bfloat16)
-            and tuple(parameters.shape) == tuple(dp.shape)
-            and _channel_minor_dense(parameters) and _channel_minor_dense(dp)
-            and parameters.data_ptr() % 16 == 0 and dp.data_ptr() % 16 == 0)
+    this gradient buffer: ``"tiled"`` where both take the forward's tile path
+    and have one dtype and shape, ``"direct"`` for anything else."""
+    fits = (parameters.dtype == dp.dtype and tuple(parameters.shape) == tuple(dp.shape)
+            and _tile_operand(parameters) and _tile_operand(dp))
     return "tiled" if fits else "direct"
 
 
@@ -169,12 +183,15 @@ def tiles_of(total: int, tile: int, blocks: int) -> List[List[Tuple[int, int]]]:
             for b in range(blocks)]
 
 
-def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int) -> int:
-    """Blocks an SM of the current CUDA device holds of the backward's tile
-    path for parameters of ``dtype`` with ``n_mix`` mixtures, as the CUDA
-    occupancy query sizes its persistent grid."""
-    return _library().mdl_log_prob_backward_tile_blocks_per_sm(
-        int(dtype == torch.bfloat16), n_mix)
+def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int, forward: bool = False) -> int:
+    """Blocks an SM of the current CUDA device holds of the backward's (or,
+    with ``forward``, the forward's) tile path for parameters of ``dtype``
+    with ``n_mix`` mixtures, as the CUDA occupancy query sizes its
+    persistent grid."""
+    bf16 = int(dtype == torch.bfloat16)
+    if forward:
+        return _library().mdl_log_prob_forward_tile_blocks_per_sm(bf16, n_mix)
+    return _library().mdl_log_prob_backward_tile_blocks_per_sm(bf16, n_mix)
 
 
 def _check_cotangent(parameters: torch.Tensor, g: torch.Tensor) -> None:
@@ -188,8 +205,8 @@ def _check_cotangent(parameters: torch.Tensor, g: torch.Tensor) -> None:
 
 
 def _check_path(path: Optional[str]) -> None:
-    if path is not None and path not in BACKWARD_PATHS:
-        raise ValueError(f"path must be one of {BACKWARD_PATHS} or None; got {path!r}")
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None; got {path!r}")
 
 
 def mdl_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor,
@@ -307,9 +324,9 @@ def _plain_x_grad(x01, parameters, g):
 
 class _MDLLogProb(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x01, parameters):
+    def forward(ctx, x01, parameters, path):
         ctx.save_for_backward(x01, parameters)
-        return _launch(x01, parameters)
+        return _launch(x01, parameters, path)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -319,20 +336,26 @@ class _MDLLogProb(torch.autograd.Function):
             d_params = mdl_backward_cuda(x01, parameters, grad_out)
         if ctx.needs_input_grad[0]:
             d_x = _plain_x_grad(x01, parameters, grad_out)
-        return d_x, d_params
+        return d_x, d_params, None
 
 
-def mdl_log_prob_cuda(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
+def mdl_log_prob_cuda(x01: torch.Tensor, parameters: torch.Tensor,
+                      path: Optional[str] = None) -> torch.Tensor:
     """The kernel: x ``[B, H, W, 3]`` float32 in [0, 1], parameters
     ``[k, B, H, W, 10n]`` float32 or bfloat16, any strides, on one CUDA
-    device -> ``[k, B, H, W, 1]`` float32. Differentiable: the parameters'
-    gradient comes from the backward kernel."""
-    return _MDLLogProb.apply(x01, parameters)
+    device -> ``[k, B, H, W, 1]`` float32. ``path`` names the memory path;
+    ``None`` takes ``forward_path``'s choice, and ``"tiled"`` on parameters
+    that do not fit it raises. Differentiable: the parameters' gradient
+    comes from the backward kernel."""
+    return _MDLLogProb.apply(x01, parameters, path)
 
 
-def mdl_log_prob(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
+def mdl_log_prob(x01: torch.Tensor, parameters: torch.Tensor,
+                 path: Optional[str] = None) -> torch.Tensor:
     """Per-pixel MoDL log-prob ``[..., H, W, 1]``: the plain version for CPU
-    tensors, the kernel for CUDA tensors."""
+    tensors (whatever the path), the kernel (on ``path``, see
+    ``mdl_log_prob_cuda``) for CUDA tensors."""
     if x01.device.type == "cpu" and parameters.device.type == "cpu":
+        _check_path(path)
         return mixture_log_prob(x01, parameters.float())
-    return mdl_log_prob_cuda(x01, parameters)
+    return mdl_log_prob_cuda(x01, parameters, path)

@@ -39,7 +39,7 @@ import torch
 
 from vae_mdl_tpu_torch.ops.cuda import io_probe
 from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import (
-    BACKWARD_PATHS,
+    PATHS,
     _check,
     _check_cotangent,
     backward_path,
@@ -51,7 +51,7 @@ VARIANTS = ("dma", "staged")
 # the backward's by memory path
 launches = 0
 backward_launches = 0
-backward_launches_by_path: Dict[str, int] = dict.fromkeys(BACKWARD_PATHS, 0)
+backward_launches_by_path: Dict[str, int] = dict.fromkeys(PATHS, 0)
 
 
 def _staged(variant: str) -> int:

@@ -1,5 +1,5 @@
-"""The likelihood kernels' outputs on seeded inputs, written to a file or
-held against such a file bit for bit.
+"""The likelihood kernels' and the channel sum's outputs on seeded inputs,
+written to a file or held against such a file bit for bit.
 
 How a change to the CUDA sources is shown to leave a kernel's results as they
 were: run ``write`` on a checkout of the old sources and ``compare`` on the
@@ -7,8 +7,16 @@ new ones, on the same card. The inputs come from numpy seeds, so two
 checkouts see the same values: the MoDL forward and backward and the
 discretized-logistic forward and backward, each at the model's train shape
 (k = 5, batch 128, 32 x 32) in float32 and, for the MoDL, bfloat16, in the
-channel-minor layout the model hands on and in NCHW. Only the public wrappers
-are called, so the module runs against any checkout that has them.
+channel-minor layout the model hands on and in NCHW; the MoDL forward also at
+the eval chunk's k = 100 (batch 16) in both dtypes and both layouts; and the
+channel-first channel sum at ``[100, 50, 1024]``. Only the public wrappers
+are called with their default paths, so the module runs against any checkout
+that has them, and each checkout takes its own paths. Run as a file, this
+module uses the package ``PYTHONPATH`` names, so one list of outputs can be
+made by two checkouts:
+
+    PYTHONPATH=<old checkout> python vae_mdl_tpu_torch/probes/kernel_outputs.py write old.pt
+    PYTHONPATH=. python vae_mdl_tpu_torch/probes/kernel_outputs.py compare old.pt
 
 Run on a CUDA card:
 
@@ -26,17 +34,27 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vae_mdl_tpu_torch.ops.cuda import dl_kernel, mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel
 
 K, BATCH, SIDE, N_MIX = 5, 128, 32, 5
+K_EVAL, BATCH_EVAL = 100, 16  # the eval chunk's samples, at a batch that keeps the file small
+SUM_SHAPE = (100, 50, 1024)  # channel-first [K, C, P]
 
 
 def _nchw(p: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
 
 
-def outputs(device: str = "cuda", k: int = K, batch: int = BATCH,
-            side: int = SIDE) -> Dict[str, torch.Tensor]:
+def _modl_params(rng, lead) -> np.ndarray:
+    p = rng.standard_normal(lead + (10 * N_MIX,), dtype=np.float32) * 2.0
+    p[..., 2 * N_MIX:3 * N_MIX] -= 4.0  # red logscales towards the clamp
+    p[..., 3 * N_MIX:4 * N_MIX] += 5.0 * (rng.random(lead + (N_MIX,)) < 0.2)  # far locations
+    return p
+
+
+def outputs(device: str = "cuda", k: int = K, batch: int = BATCH, side: int = SIDE,
+            k_eval: int = K_EVAL, batch_eval: int = BATCH_EVAL,
+            sum_shape=SUM_SHAPE) -> Dict[str, torch.Tensor]:
     """``{kernel and case: output}``, brought to the CPU. On CPU tensors the
     wrappers take their plain versions."""
     rng = np.random.default_rng(0)
@@ -51,7 +69,10 @@ def outputs(device: str = "cuda", k: int = K, batch: int = BATCH,
     loc = (0.5 + 0.3 * rng.standard_normal(lead + (3,))).astype(np.float32)
     loc += 2.0 * (rng.random(loc.shape) < 0.2)
     logscale = (rng.standard_normal(lead + (3,)) * 1.5 - 3.0).astype(np.float32)
-    x, p, g, loc, logscale = (torch.from_numpy(a).to(device) for a in (x, p, g, loc, logscale))
+    p_eval = _modl_params(rng, (k_eval, batch_eval, side, side))
+    summed = rng.standard_normal(sum_shape, dtype=np.float32)
+    x, p, g, loc, logscale, p_eval, summed = (
+        torch.from_numpy(a).to(device) for a in (x, p, g, loc, logscale, p_eval, summed))
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -62,11 +83,15 @@ def outputs(device: str = "cuda", k: int = K, batch: int = BATCH,
             out[f"mdl_log_prob {tag}"] = mdl_kernel.mdl_log_prob(x, params)
             # the gradient in the layout's own memory order, then made dense
             out[f"mdl_log_prob_backward {tag}"] = mdl_kernel.mdl_backward(x, params, g).contiguous()
+            params = p_eval.to(dtype)
+            params = _nchw(params) if layout == "nchw" else params
+            out[f"mdl_log_prob k={k_eval} {tag}"] = mdl_kernel.mdl_log_prob(x[:batch_eval], params)
     bin_ = (0.0, 1.0, 1.0 / 255.0)
     out["dl_log_prob float32"] = dl_kernel.dl_log_prob(x, loc, logscale, *bin_)
     d_loc, d_ls = dl_kernel.dl_backward(x, loc, logscale, g.expand(loc.shape), *bin_)
     out["dl_log_prob_backward float32 d_loc"] = d_loc
     out["dl_log_prob_backward float32 d_logscale"] = d_ls
+    out["channel_sum channel_first"] = io_probe.channel_sum(summed, "channel_first")
     return {name: t.cpu() for name, t in out.items()}
 
 

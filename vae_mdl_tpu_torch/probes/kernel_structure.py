@@ -62,14 +62,15 @@ def reset_counts() -> None:
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches = kernels.backward_launches = 0
     for kernels in (mdl_kernel, mdl_null):
-        kernels.backward_launches_by_path.update(dict.fromkeys(mdl_kernel.BACKWARD_PATHS, 0))
+        kernels.backward_launches_by_path.update(dict.fromkeys(mdl_kernel.PATHS, 0))
+    mdl_kernel.launches_by_path.update(dict.fromkeys(mdl_kernel.PATHS, 0))
 
 
 def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> dict:
     """One of the four steps: wall ms per step (median of the harness's
     blocks), device-busy ms per step (one traced call of ``spc`` steps) and
-    the launches of every likelihood kernel, counted from 0, the two
-    backwards' also by memory path."""
+    the launches of every likelihood kernel, counted from 0, the MoDL
+    forward and the two backwards' also by memory path."""
     over = {"likelihood": "dl"} if label == "dl_head" else None
     swap = likelihood_swapped(label) if label in mdl_null.VARIANTS else contextlib.nullcontext()
     reset_counts()
@@ -80,6 +81,7 @@ def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> 
             "likelihood_ms": likelihood, "rest_ms": r["busy_ms"] - likelihood,
             "by_class": r["by_class"], "traced_wall_ms": r["traced_wall_ms"],
             "launches": launch_counts(),
+            "forward_paths": {"mdl_log_prob": dict(mdl_kernel.launches_by_path)},
             "backward_paths": {"mdl_log_prob_backward": dict(mdl_kernel.backward_launches_by_path),
                                "mdl_null_backward": dict(mdl_null.backward_launches_by_path)}}
 

@@ -259,7 +259,8 @@ def cascade_transcendentals(branch_counts: Dict[str, int], backward: bool = Fals
     ``backward``, ``dl_grads``; with ``fused``, ``dl_value_and_grads``, the two
     in one sweep) over cascades that take each branch ``branch_counts`` =
     ``{"right", "left", "cdf", "pdf": n}`` times. The first two are the
-    census of the discretized-logistic kernels of ``csrc/dl_log_prob.cu``."""
+    census of the discretized-logistic kernels of ``csrc/dl_log_prob.cu``,
+    the third the cascades of the MoDL backward."""
     table = _CASCADE_FUSED if fused else _CASCADE_BWD if backward else _CASCADE_FWD
     out = dict.fromkeys(_OPS, 0.0)
     for branch, n in branch_counts.items():
@@ -269,58 +270,41 @@ def cascade_transcendentals(branch_counts: Dict[str, int], backward: bool = Fals
 
 
 def mdl_cuda_transcendentals(branch_counts: Dict[str, int], pixels: int, n_mix: int,
-                             backward: bool = False, path: str = "tiled") -> dict:
+                             backward: bool = False) -> dict:
     """Calls by op of one launch of the CUDA MoDL forward (or backward)
     kernel of ``csrc/mdl_log_prob.cu`` over ``pixels`` pixels whose 3 * n_mix
-    cascades take the branches ``branch_counts``.
+    cascades take the branches ``branch_counts``, on either memory path (each
+    direction runs one body on both).
 
     Forward, per pixel: n exp and a log (the logits' logsumexp), 3n tanh, the
     3n cascades, n exp and a log (the weights' logsumexp).
 
-    Backward on the tile path (``path="tiled"``, what the model's layout
-    takes): the logits' n exp and log, 3n tanh, each cascade once through
+    Backward: the logits' n exp and log, 3n tanh, each cascade once through
     ``dl_value_and_grads``, and the weights' n exp; nothing is evaluated
     twice.
 
-    Backward on the direct path (``path="direct"``): the forward's weights
-    without its last log, then per mixture the three cascades' derivatives.
-    Expressions the second pass writes again unconditionally are counted
-    once, as the compiler merges them: the two softmaxes' exponentials, the
-    3n tanh and each cascade's exp(-logscale); the sigmoids sit under the
-    cascade's branches in both passes and stay counted in each.
-
     ``mdl_cuda_sass_ex2`` holds these counts against the built kernels.
     """
-    if path not in ("tiled", "direct"):
-        raise ValueError(f"path must be 'tiled' or 'direct'; got {path!r}")
     n = n_mix
-    fused = backward and path == "tiled"
-    out = cascade_transcendentals(branch_counts, fused=fused)
+    out = cascade_transcendentals(branch_counts, fused=backward)
     out["tanh"] += 3.0 * n * pixels
     out["exp"] += 2.0 * n * pixels
     out["log"] += (1.0 if backward else 2.0) * pixels
-    if backward and not fused:
-        cascades = float(sum(branch_counts.values()))
-        for op, calls in cascade_transcendentals(branch_counts, backward=True).items():
-            out[op] += calls
-        out["exp"] -= cascades  # exp(-logscale), shared with the first pass
     return out
 
 
-def mdl_cuda_sass_ex2(n_mix: int, backward: bool = False, path: str = "tiled") -> int:
+def mdl_cuda_sass_ex2(n_mix: int, backward: bool = False) -> int:
     """The MUFU.EX2 instructions in the SASS of one MoDL kernel of
     ``csrc/mdl_log_prob.cu`` (``ops/cuda/build.py`` ``mufu_counts``), which
-    lists every branch of every cascade once. A cascade's listing holds its
-    exp(-logscale), the common pair of sigmoids, and per branch what
-    ``cascade_transcendentals`` counts beyond those: forward 1 + 2 + one
-    softplus in each edge bin and in the PDF branch = 6; the direct backward
-    adds ``dl_grads``' sigmoids (1 + 1 + 2 + 1, its exp(-logscale) merged) =
-    11; the fused sweep shares the pair of sigmoids: 1 + 2 + (softplus +
-    sigmoid) in each edge bin and in the PDF branch = 9. Around them a kernel
-    holds 3n tanhf (one EX2 on the large-argument path) and the two
-    softmaxes' 2n exp. n_mix = 5: 115 forward, 190 direct backward, 160 on
-    the tile path."""
-    per_cascade = (9 if path == "tiled" else 11) if backward else 6
+    lists every branch of every cascade once, on either memory path. A
+    cascade's listing holds its exp(-logscale), the common pair of sigmoids,
+    and per branch what ``cascade_transcendentals`` counts beyond those:
+    forward 1 + 2 + one softplus in each edge bin and in the PDF branch = 6;
+    the backward's fused sweep 1 + 2 + (softplus + sigmoid) in each edge bin
+    and in the PDF branch = 9. Around them a kernel holds 3n tanhf (one EX2
+    on the large-argument path) and the two softmaxes' 2n exp. n_mix = 5: 115
+    forward, 160 backward."""
+    per_cascade = 9 if backward else 6
     return 3 * n_mix * per_cascade + 3 * n_mix + 2 * n_mix
 
 

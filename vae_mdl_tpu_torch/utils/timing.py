@@ -113,6 +113,40 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> float:
     return _timed(lambda: [fn() for _ in range(reps)], True) * 1e3 / reps
 
 
+def graph_ms(fn: Callable[[], object], reps: int) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph and replayed, timed with CUDA events, so that no host time
+    of the wrappers is in it (a kernel of 0.1 ms is shorter than its
+    wrapper's Python). ``fn`` must only launch work on the current stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture: builds, first-launch queries
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], order, reps: int,
+             timer: Callable[[Callable[[], object], int], float] = cuda_ms) -> Dict[str, float]:
+    """Mean time (``timer``: ``cuda_ms`` or ``graph_ms``) of each function
+    over its turns in ``order`` (say a, b, b, a): two versions compared in
+    one stretch on one card."""
+    taken: Dict[str, list] = {name: [] for name in fns}
+    for name in order:
+        taken[name].append(timer(fns[name], reps))
+    return {name: float(np.mean(ms)) for name, ms in taken.items()}
+
+
 def time_scanned_step(train_step, state, batch, spc: int, batch_size: int,
                       n_iters: int = 5, n_repeats: int = 6) -> np.ndarray:
     """Warm up (2 calls), then time ``n_repeats`` blocks of ``n_iters`` calls
