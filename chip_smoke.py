@@ -62,12 +62,22 @@ and nothing falls back to a plain version.
 6. the discretized-logistic (DL) forward kernel against its plain version at
    the model's train shape (k = 5, batch 128, 32x32x3) and eval-chunk shape
    (k = 100), x broadcast over k, for contiguous operands and for the two
-   channel halves of a head tensor in NCHW and in channels-last memory (the
-   model's), every branch hit; the DL backward
-   kernel at k = 5 against its analytic plain version element by element
-   and against float64 autograd by the accuracy rule, with the times of the
-   backward alone and of forward + backward through the kernels against
-   autograd of the plain version;
+   channel halves of a head tensor in NCHW memory (both on the direct path)
+   and in channels-last memory (the model's: the tile path), every branch
+   hit; on the channels-last halves the direct path forced on the same
+   operands, held to the tile path bit for bit and timed in turns with it
+   (CUDA events, and device time from a CUDA graph); the DL backward kernel
+   at k = 5 the same way, against its analytic plain version element by
+   element and against float64 autograd by the accuracy rule, with the times
+   of the backward alone and of forward + backward through the kernels (the
+   head tensor as the leaf, through ``dl_log_prob_head``: on the tile path
+   the two DL kernels and nothing else on the device) against autograd of
+   the plain version; then model03's own head output at initialisation (k =
+   5 and 100): both paths on the device in turns and the bound on this
+   data; and a ragged case (k
+   = 3, B = 7, 31 x 31) on the tile path and a misaligned copy of the head,
+   which takes the direct path, gives the same bits and is refused on the
+   tile path;
 7. the memory-path probes at full size: the channel sum (P1, P2) of a
    ``[100, 102400, 50]`` and a ``[100, 50, 102400]`` float32 tensor (2.05 GB
    each) through the direct and the staged path against ``sum`` (tolerance
@@ -103,12 +113,14 @@ and nothing falls back to a plain version.
    float32 through the plain version: the median imgs/s of 5 timed calls
    after a warm-up, the peak memory, and a finite loss that falls; every
    MoDL forward of model05's evaluation and training and every MoDL
-   backward of its training must have taken the tile path, while model03,
-   whose DL head launches no MoDL kernel, is the control; (c) the
+   backward of its training must have taken the tile path, and every DL
+   forward and backward of model03's (whose DL head launches no MoDL
+   kernel) the DL kernels' tile path; (c) the
    rest of the measurement path on model05, batch 128, k = 5, f32, through
    ``utils/timing.py``: ``probes.kernel_structure`` (the four-way step:
    the null kernels must launch in ``dma`` (backward on the direct path) and
-   ``staged`` (on the tile path), the DL pair in ``dl_head``, the MoDL pair
+   ``staged`` (on the tile path), the DL pair in ``dl_head`` (on its tile
+   path), the MoDL pair
    in ``full`` (backward on the tile path), and no other) and
    ``probes.kernel_isolate`` / ``kernel_isolate2`` (every channel-first
    launch on the vec4 kernel);
@@ -138,10 +150,14 @@ logistic's or a MoDL's log-prob or its gradient. The kernels with a tile
 path carry ``path`` (the memory path of the timed case), ``ms_direct`` (the
 direct path on the same operands, timed in turns with ``ms``) and
 ``blocks_per_sm`` (the tile path's blocks an SM, as the occupancy query
-sizes its grid); the MoDL forward also ``device_ms`` and
+sizes its grid); the MoDL forward and the DL pair also ``device_ms`` and
 ``device_ms_direct`` (the two paths' device times) and the same on the
-model's own head output at k = 100 (``model_head_device_ms``,
-``model_head_device_ms_direct``); P2 carries ``ms_strided``, its strided
+model's own head output (model05's at k = 100 for the MoDL forward,
+model03's at k = 100 for the DL forward and k = 5 for its backward:
+``model_head_device_ms``, ``model_head_device_ms_direct``, with the DL
+pair's ``model_head_bound_ms``); the DL pair's
+``launches_by_memory_path`` splits its main-path launches by memory path;
+P2 carries ``ms_strided``, its strided
 kernel timed in turns with the vec4 one. The MoDL backward's
 ``max_abs_err`` is over its float32 contract; ``max_abs_err_bf16`` (one bf16
 ulp of gradients of a few hundred) is over the bf16 ones, and
@@ -352,19 +368,19 @@ def phase_build() -> None:
     for lib, new in zip(libs, fresh):
         say(f"build: {'compiled' if new else 'found'} {lib.name}")
     say(f"build: {seconds:.1f} s for the {len(sources)} sources")
-    # the instantiations the paths launch: MoDL at n_mix = 5, the DL kernels
-    # at four merged dimensions with 32-bit indices, the probe at the default
-    # chains, every kernel of io_probe.cu
-    wanted = ("Li5E", "IjLi4E", f"Li{sfu_probe.DEFAULT_CHAINS}EE", "")
+    # the instantiations the paths launch: MoDL at n_mix = 5, the DL kernels'
+    # direct path at four merged dimensions with 32-bit indices and their
+    # tile path, the probe at the default chains, every kernel of io_probe.cu
+    wanted = (("Li5E",), ("IjLi4E", "kernel_tiled"), (f"Li{sfu_probe.DEFAULT_CHAINS}EE",),
+              ("",))
     for lib, family, want in zip(libs, ("MoDL n_mix=5", "DL", "probe", "io"), wanted):
         lines = lib.with_suffix(".log").read_text().splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and want in line:
+            if "Compiling entry function" in line and any(w in line for w in want):
                 mangled = line.split("'")[1]
                 if family in ("MoDL n_mix=5", "DL"):
                     entry = "backward" if "backward_kernel" in line else "forward"
-                    if family != "DL":
-                        entry += ", tile path" if "kernel_tiled" in line else ", direct path"
+                    entry += ", tile path" if "kernel_tiled" in line else ", direct path"
                     dtype = "" if family == "DL" else (" bf16" if "bfloat16" in line else " f32")
                     what = f"{family}{dtype} {entry}"
                 else:  # the kernel's name and template arguments, unmangled by eye
@@ -413,6 +429,11 @@ def roofline_path(smi: str) -> dict:
                    "dl_log_prob_backward"), "the roofline")
     _took(mdl_kernel.launches_by_path, "tiled", "the roofline's MoDL forward")
     _took(mdl_kernel.backward_launches_by_path, "tiled", "the roofline's MoDL backward")
+    _took(dl_kernel.launches_by_path, "tiled", "the roofline's DL forward")
+    _took(dl_kernel.backward_launches_by_path, "tiled", "the roofline's DL backward")
+    counts.update({f"dl_log_prob {p}": n for p, n in dl_kernel.launches_by_path.items()})
+    counts.update({f"dl_log_prob_backward {p}": n
+                   for p, n in dl_kernel.backward_launches_by_path.items()})
     for value in (*roof["rates"].values(), roof["additive"]["measured"],
                   *(f["cuda"] for f in roof["floors"].values())):
         if not np.isfinite(value) or value <= 0:
@@ -795,19 +816,24 @@ def phase_backward():
 
 
 DL_LAYOUTS = ("contiguous", "nchw halves", "nhwc halves")
+# the memory path each layout's operands take: the halves of a channels-last
+# head the tile path, everything else the direct one
+DL_PATHS = {"contiguous": "direct", "nchw halves": "direct", "nhwc halves": "tiled"}
+TURNS = ("direct", "tiled", "tiled", "direct")
 
 
-def dl_inputs(k: int, layout: str, gen: torch.Generator):
+def dl_inputs(k: int, layout: str, gen: torch.Generator, batch: int = BATCH, side: int = 32):
     """The DL head's operands at the model's shapes: x ``[B, 32, 32, 3]`` in
     [0, 1] with 0 and 1 in it, loc and logscale ``[k, B, 32, 32, 3]`` hitting
     every branch (logscales down to -9, far-off locations): contiguous, or
     the two channel halves of a head tensor ``[k * B, 6, 32, 32]`` in NCHW or
-    in channels-last (NHWC) memory."""
+    in channels-last (NHWC) memory. -> (x, loc, logscale, the head as the
+    decoder hands it on, ``[k, B, 32, 32, 6]``)."""
     dev = gen.device
-    x = torch.randint(0, 256, (BATCH, 32, 32, 3), generator=gen, device=dev).float() / 255.0
+    x = torch.randint(0, 256, (batch, side, side, 3), generator=gen, device=dev).float() / 255.0
     x[:, 0, :, :] = 0.0
     x[:, -1, :, :] = 1.0
-    half = (k * BATCH, 3, 32, 32)
+    half = (k * batch, 3, side, side)
     far = (torch.rand(half, generator=gen, device=dev) < 0.2).float()
     low = torch.rand(half, generator=gen, device=dev) < 0.1
     loc = torch.randn(half, generator=gen, device=dev) * 0.25 + 0.5 + 2.0 * far
@@ -817,22 +843,47 @@ def dl_inputs(k: int, layout: str, gen: torch.Generator):
     if layout == "nhwc halves":  # as cuDNN writes it for a channels-last input
         head = head.contiguous(memory_format=torch.channels_last)
     del far, low, loc, logscale
-    loc, logscale = head_halves(head, k)
+    view = head_view(head, k)
+    loc, logscale = torch.chunk(view, 2, dim=-1)
     if layout == "contiguous":
         loc, logscale = loc.contiguous(), logscale.contiguous()
-    return x, loc, logscale, head
+    return x, loc, logscale, view
 
 
-def head_halves(head: torch.Tensor, k: int):
-    """The head conv's output ``[k * B, 6, 32, 32]`` as the decoder hands it
-    to the likelihood: an ``[k, B, 32, 32, 6]`` view, split in two."""
-    view = head.reshape(k, BATCH, 6, 32, 32).permute(0, 1, 3, 4, 2)
-    return torch.chunk(view, 2, dim=-1)
+def head_view(head: torch.Tensor, k: int) -> torch.Tensor:
+    """The head conv's output ``[k * B, 6, H, W]`` as the decoder hands it to
+    the likelihood: an ``[k, B, H, W, 6]`` view."""
+    n, c, h, w = head.shape
+    return head.reshape(k, n // k, c, h, w).permute(0, 1, 3, 4, 2)
+
+
+def model03_head(k: int):
+    """model03's own head output at initialisation (float32 config, seeded
+    weights and noise) on one seeded batch of 128: (x in [0, 1], the head
+    ``[k, B, 32, 32, 6]`` as the decoder hands it on)."""
+    model = seeded_model(MODELS["model03"])
+    x = torch.as_tensor(images(BATCH), device="cuda").float() / 255.0
+    with torch.no_grad():
+        dist = model(x, k, generator=torch.Generator("cuda").manual_seed(SEED))[2].dist
+    if not dist._halves_of_head():
+        raise AssertionError("model03's observation does not carry its head")
+    return x, dist.head
+
+
+def dl_fwd(x, loc, logscale, path=None):
+    low, high, width = DL_BIN
+    return dl_kernel.dl_log_prob(x, loc, logscale, low, high, width, path=path)
+
+
+def dl_bwd(x, loc, logscale, g, path=None):
+    low, high, width = DL_BIN
+    return dl_kernel.dl_backward(x, loc, logscale, g, low, high, width, path=path)
 
 
 def phase_dl_kernels():
-    """The DL kernels against their plain versions. -> (max |kernel - plain|
-    forward, the same backward, {case: record} forward, the same backward)."""
+    """The DL kernels against their plain versions, the tile path against
+    the direct one. -> (max |kernel - plain| forward, the same backward,
+    {case: record} forward, the same backward)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     low, high, width = DL_BIN
     fwd_err = bwd_err = 0.0
@@ -842,15 +893,32 @@ def phase_dl_kernels():
         return discretized_logistic_log_prob(x, loc, logscale, low=low, high=high,
                                              interval_width=width)
 
+    def forward_bound(x, loc, logscale, out, counts):
+        calls = cascade_transcendentals(counts)
+        return bound(distinct_bytes(x, loc, logscale, out),
+                     sum(DL_FWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
+
+    def backward_bound(x, loc, logscale, g, grads, counts):
+        calls = cascade_transcendentals(counts, backward=True)
+        return bound(distinct_bytes(x, loc, logscale, g, *grads),
+                     sum(DL_BWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
+
     for k in (5, 100):
         for layout in DL_LAYOUTS:
+            path = DL_PATHS[layout]
             name = f"K5 f32 k={k} B={BATCH} {layout}"
-            x, loc, logscale, head = dl_inputs(k, layout, gen)
+            x, loc, logscale, view = dl_inputs(k, layout, gen)
+            if dl_kernel.forward_path(x, loc, logscale) != path:
+                raise AssertionError(f"{name}: forward_path chose "
+                                     f"{dl_kernel.forward_path(x, loc, logscale)}, not {path}")
             counts = branch_counts(x, loc, logscale, low, high, width)
             if min(counts.values()) == 0:
                 raise AssertionError(f"{name}: a branch is not hit: {counts}")
             with torch.inference_mode():
-                got = dl_kernel.dl_log_prob(x, loc, logscale, low, high, width)
+                before = dict(dl_kernel.launches_by_path)
+                got = dl_fwd(x, loc, logscale)
+                if dl_kernel.launches_by_path[path] != before[path] + 1:
+                    raise AssertionError(f"{name}: the wrapper did not count a {path} launch")
                 want = plain(x, loc, logscale)
                 torch.cuda.synchronize()
                 if got.shape != want.shape or got.dtype != torch.float32:
@@ -860,21 +928,41 @@ def phase_dl_kernels():
                 err = (got - want).abs()
                 excess = float((err - (ATOL + RTOL * want.abs())).max())
                 max_err = float(err.max())
-                ms = cuda_ms(lambda: dl_kernel.dl_log_prob(x, loc, logscale, low, high, width), 20)
+                fns = {"tiled": lambda: dl_fwd(x, loc, logscale),
+                       "direct": lambda: dl_fwd(x, loc, logscale, "direct")}
+                if path == "tiled":  # the direct path on the same operands, in turns
+                    equal = bool(torch.equal(got, dl_fwd(x, loc, logscale, "direct")))
+                    turns = in_turns(fns, TURNS, 20)
+                    # under 0.15 ms an event time is mostly the wrapper's host
+                    # time: the device's, from a CUDA graph of the launches
+                    device = in_turns(fns, TURNS, 20, graph_ms)
+                    blocks = dl_kernel.tile_blocks_per_sm()
+                    more = dict(path=path, ms_direct=turns["direct"], bit_equal_to_direct=equal,
+                                blocks_per_sm=blocks,
+                                device_ms=device["tiled"], device_ms_direct=device["direct"])
+                    ms = turns["tiled"]
+                    ab = (f" at {blocks} blocks an SM (direct path on the same operands, "
+                          f"in turns: {turns['direct']:.4f} ms; on the device {device['tiled']:.4f} ms, "
+                          f"direct {device['direct']:.4f}; the two paths bit-equal: {equal})")
+                    if not equal:
+                        raise AssertionError(f"{name}: the tile path's bits differ from the "
+                                             f"direct path's")
+                else:
+                    ms = cuda_ms(fns["direct"], 20)
+                    more = dict(path=path, device_ms=graph_ms(fns["direct"], 20))
+                    ab = f" (on the device {more['device_ms']:.4f} ms)"
                 plain_ms = cuda_ms(lambda: plain(x, loc, logscale), 5)
-            calls = cascade_transcendentals(counts)
-            bound_ms, bound_by, by = bound(distinct_bytes(x, loc, logscale, got),
-                                           sum(DL_FWD_OPS[b] * n for b, n in counts.items()),
-                                           calls)
-            say(f"kernel {name}: max|d|={max_err:.3e} (tolerance excess {excess:.3e}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {bounds_text(by)}); attainable at the measured rates "
-                f"{attainable(calls):.4f} ms; branches {counts}")
+            bound_ms, bound_by, by, calls = forward_bound(x, loc, logscale, got, counts)
+            say(f"kernel {name}, {path} path: max|d|={max_err:.3e} (tolerance excess "
+                f"{excess:.3e}), kernel {ms:.4f} ms{ab}, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}); attainable at the measured "
+                f"rates {attainable(calls):.4f} ms; branches {counts}")
             if excess > 0:
                 raise AssertionError(f"{name}: kernel and plain version differ beyond tolerance")
             fwd_err = max(fwd_err, max_err)
             fwd_cases[name] = dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, bounds=by, attainable_ms=attainable(calls))
+                                   bound_by=bound_by, bounds=by, attainable_ms=attainable(calls),
+                                   **more)
             del got, want, err
             if k > 5:
                 continue
@@ -882,7 +970,10 @@ def phase_dl_kernels():
             # the backward, at the train shape: the cotangent as the sum over
             # the image's axes expands it
             g = torch.randn((k, BATCH, 1, 1, 1), generator=gen, device="cuda").expand(loc.shape)
-            got = dl_kernel.dl_backward(x, loc, logscale, g, low, high, width)
+            before = dict(dl_kernel.backward_launches_by_path)
+            got = dl_bwd(x, loc, logscale, g)
+            if dl_kernel.backward_launches_by_path[path] != before[path] + 1:
+                raise AssertionError(f"{name}: the backward did not count a {path} launch")
             want = dl_kernel.dl_backward_plain(x, loc, logscale, g, low, high, width)
             torch.cuda.synchronize()
             excess = -float("inf")
@@ -906,43 +997,63 @@ def phase_dl_kernels():
             rms_kernel = float(((torch.cat(got, dim=-1).double() - truth) ** 2).mean().sqrt())
             del truth, want
 
-            def leaves_of():
-                """(leaves, loc, logscale): the head tensor as the one leaf
-                where the operands are its halves, as in the model."""
-                if layout != "contiguous":
-                    leaf = head.detach().requires_grad_(True)
-                    return [leaf], *head_halves(leaf, k)
-                pair = [loc.detach().requires_grad_(True), logscale.detach().requires_grad_(True)]
-                return pair, *pair
-
             def fwd_bwd_kernel():
-                leaves, a, b = leaves_of()
-                return torch.autograd.grad(dl_kernel.dl_log_prob(x, a, b, low, high, width),
-                                           leaves, g)
+                """As the model differentiates it: the head conv's output is
+                the leaf and the likelihood takes its view whole, where loc
+                and logscale are its halves."""
+                if layout == "contiguous":
+                    leaves = [loc.detach().requires_grad_(True),
+                              logscale.detach().requires_grad_(True)]
+                    return torch.autograd.grad(dl_fwd(x, *leaves), leaves, g)
+                leaf = view.detach().requires_grad_(True)
+                return torch.autograd.grad(
+                    dl_kernel.dl_log_prob_head(x, leaf, low, high, width), [leaf], g)
 
             def fwd_bwd_plain():
-                leaves, a, b = leaves_of()
-                return torch.autograd.grad(plain(x, a, b), leaves, g)
+                if layout == "contiguous":
+                    leaves = [loc.detach().requires_grad_(True),
+                              logscale.detach().requires_grad_(True)]
+                    return torch.autograd.grad(plain(x, *leaves), leaves, g)
+                leaf = view.detach().requires_grad_(True)
+                return torch.autograd.grad(plain(x, *torch.chunk(leaf, 2, dim=-1)), [leaf], g)
 
-            ms = cuda_ms(lambda: dl_kernel.dl_backward(x, loc, logscale, g, low, high, width), 20)
+            bwd_fns = {"tiled": lambda: dl_bwd(x, loc, logscale, g),
+                       "direct": lambda: dl_bwd(x, loc, logscale, g, "direct")}
+            if path == "tiled":
+                equal = all(torch.equal(a, b) for a, b in zip(got, bwd_fns["direct"]()))
+                turns = in_turns(bwd_fns, TURNS, 20)
+                device = in_turns(bwd_fns, TURNS, 20, graph_ms)
+                blocks = dl_kernel.tile_blocks_per_sm(backward=True)
+                ms = turns["tiled"]
+                more = dict(path=path, ms_direct=turns["direct"], bit_equal_to_direct=equal,
+                            blocks_per_sm=blocks,
+                            device_ms=device["tiled"], device_ms_direct=device["direct"])
+                ab = (f" at {blocks} blocks an SM (direct path on the same operands, in turns: "
+                      f"{turns['direct']:.4f} ms; on the device {device['tiled']:.4f} ms, direct "
+                      f"{device['direct']:.4f}; the two paths bit-equal: {equal})")
+                if not equal:
+                    raise AssertionError(f"{name}: the backward's tile path differs from the "
+                                         f"direct path")
+            else:
+                ms = cuda_ms(bwd_fns["direct"], 20)
+                more = dict(path=path, device_ms=graph_ms(bwd_fns["direct"], 20))
+                ab = f" (on the device {more['device_ms']:.4f} ms)"
             plain_ms = cuda_ms(
                 lambda: dl_kernel.dl_backward_plain(x, loc, logscale, g, low, high, width), 10)
             fb_ms = cuda_ms(fwd_bwd_kernel, 20)
             fb_plain_ms = cuda_ms(fwd_bwd_plain, 10)
             n_kernels, by_class = device_profile(fwd_bwd_kernel, 10)
             n_plain, by_class_plain = device_profile(fwd_bwd_plain, 10)
-            calls = cascade_transcendentals(counts, backward=True)
-            bound_ms, bound_by, by = bound(distinct_bytes(x, loc, logscale, g, *got),
-                                           sum(DL_BWD_OPS[b] * n for b, n in counts.items()),
-                                           calls)
-            say(f"backward {name}: max|d|={max_err:.3e} (tolerance excess {excess:.3e}); "
-                f"rms vs f64 kernel {rms_kernel:.3e} autograd {rms_ref:.3e}; backward kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{bounds_text(by)}); attainable at the measured rates {attainable(calls):.4f} ms; "
-                f"fwd+bwd kernels {fb_ms:.4f} ms, autograd of plain {fb_plain_ms:.4f} ms")
+            bound_ms, bound_by, by, calls = backward_bound(x, loc, logscale, g, got, counts)
+            say(f"backward {name}, {path} path: max|d|={max_err:.3e} (tolerance excess "
+                f"{excess:.3e}); rms vs f64 kernel {rms_kernel:.3e} autograd {rms_ref:.3e}; "
+                f"backward kernel {ms:.4f} ms{ab}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                f"ms ({bound_by}; {bounds_text(by)}); attainable at the measured rates "
+                f"{attainable(calls):.4f} ms; fwd+bwd kernels {fb_ms:.4f} ms, autograd of plain "
+                f"{fb_plain_ms:.4f} ms")
             # device time of the same forward + backward, from the profiler:
-            # what autograd adds around the two kernels (with the head tensor
-            # as the leaf: the halves' gradients on their way back into it)
+            # what autograd adds around the two kernels, with the head tensor
+            # as the leaf where the operands are its halves
             say(f"fwd+bwd {name}, device: {n_kernels:.1f} kernels a call, "
                 f"{sum(by_class.values()):.4f} ms ("
                 + ", ".join(f"{c} {v:.4f}" for c, v in sorted(by_class.items())) + "); "
@@ -951,12 +1062,103 @@ def phase_dl_kernels():
                 raise AssertionError(f"{name}: backward kernel and plain version differ beyond tolerance")
             if rms_kernel > F64_RATIO * rms_ref + 1e-9:
                 raise AssertionError(f"{name}: backward kernel less accurate than autograd")
+            # (the profiler may miss a launch now and then: the classes, not
+            # the count, show that nothing ran beside the two kernels)
+            if path == "tiled" and set(by_class) != {"DL forward", "DL backward"}:
+                raise AssertionError(f"{name}: forward + backward on the head ran "
+                                     f"{sorted(by_class)} on the device, not the two DL "
+                                     f"kernels alone")
             bwd_cases[name] = dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, bounds=by, attainable_ms=attainable(calls),
-                                   device_ms=by_class["DL backward"])
-            fwd_cases[name]["device_ms"] = by_class["DL forward"]
+                                   fwd_bwd_kernels=n_kernels,
+                                   fwd_bwd_device_ms=sum(by_class.values()),
+                                   profiled_device_ms=by_class["DL backward"], **more)
+            fwd_cases[name]["profiled_device_ms"] = by_class["DL forward"]
             del got, g
-        del x, loc, logscale, head
+        del x, loc, logscale, view
+    torch.cuda.empty_cache()
+
+    # model03's own head output at initialisation (what the model's paths
+    # hand the kernels): both paths on the device in turns, forward at k = 5
+    # and 100, backward at k = 5
+    for k in (5, 100):
+        x, head = model03_head(k)
+        loc, logscale = torch.chunk(head, 2, dim=-1)
+        if dl_kernel.forward_path(x, loc, logscale) != "tiled":
+            raise AssertionError(f"model03 head k={k}: not on the tile path")
+        counts = branch_counts(x, loc, logscale, low, high, width)
+        reps = 20 if k == 5 else 10
+        with torch.inference_mode():
+            got = dl_fwd(x, loc, logscale)
+            equal = bool(torch.equal(got, dl_fwd(x, loc, logscale, "direct")))
+            fns = {"tiled": lambda: dl_fwd(x, loc, logscale),
+                   "direct": lambda: dl_fwd(x, loc, logscale, "direct")}
+            turns = in_turns(fns, TURNS, reps)
+            device = in_turns(fns, TURNS, reps, graph_ms)
+        bound_ms, bound_by, by, calls = forward_bound(x, loc, logscale, got, counts)
+        say(f"model03 head k={k} forward (tiled path): "
+            f"{turns['tiled']:.4f} ms, direct {turns['direct']:.4f} ms in turns; on the "
+            f"device {device['tiled']:.4f} ms, direct {device['direct']:.4f}; bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}), share "
+            f"{bound_ms / device['tiled']:.1%}; bit-equal {equal}; branches {counts}")
+        if not equal:
+            raise AssertionError(f"model03 head k={k}: the forward's paths differ")
+        fwd_cases[f"model03 head k={k}"] = dict(
+            ms=turns["tiled"], ms_direct=turns["direct"], device_ms=device["tiled"],
+            device_ms_direct=device["direct"], bound_ms=bound_ms, bound_by=bound_by)
+        if k == 5:
+            g = torch.randn((k, BATCH, 1, 1, 1), generator=gen, device="cuda").expand(loc.shape)
+            d_got = dl_bwd(x, loc, logscale, g)
+            equal = all(torch.equal(a, b) for a, b in zip(d_got, dl_bwd(x, loc, logscale, g,
+                                                                          "direct")))
+            fns = {"tiled": lambda: dl_bwd(x, loc, logscale, g),
+                   "direct": lambda: dl_bwd(x, loc, logscale, g, "direct")}
+            turns = in_turns(fns, TURNS, reps)
+            device = in_turns(fns, TURNS, reps, graph_ms)
+            bound_ms, bound_by, by, calls = backward_bound(x, loc, logscale, g, d_got, counts)
+            say(f"model03 head k={k} backward (tiled path): {turns['tiled']:.4f} ms, direct "
+                f"{turns['direct']:.4f} ms in turns; on the device {device['tiled']:.4f} ms, "
+                f"direct {device['direct']:.4f}; bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{bounds_text(by)}), share {bound_ms / device['tiled']:.1%}; bit-equal {equal}")
+            if not equal:
+                raise AssertionError(f"model03 head k={k}: the backward's paths differ")
+            bwd_cases[f"model03 head k={k}"] = dict(
+                ms=turns["tiled"], ms_direct=turns["direct"], device_ms=device["tiled"],
+                device_ms_direct=device["direct"], bound_ms=bound_ms, bound_by=bound_by)
+            del g, d_got
+        del x, head, loc, logscale, got
+    torch.cuda.empty_cache()
+
+    # off the model's shapes: a ragged last tile (k = 3, B = 7, 31 x 31:
+    # 20,181 pixels) on the tile path, and a misaligned copy of the head,
+    # which takes the direct path and is refused on the tile path
+    x, loc, logscale, view = dl_inputs(3, "nhwc halves", gen, batch=7, side=31)
+    g = torch.randn((3, 7, 1, 1, 1), generator=gen, device="cuda").expand(loc.shape)
+    ragged = loc.shape[:4].numel()
+    if ragged % dl_kernel.TILE_THREADS == 0:
+        raise AssertionError("the pixels are whole tiles: no ragged case")
+    got, d_got = dl_fwd(x, loc, logscale), dl_bwd(x, loc, logscale, g)
+    want, d_want = plain(x, loc, logscale), dl_kernel.dl_backward_plain(x, loc, logscale, g,
+                                                                         low, high, width)
+    excess = max([float(((got - want).abs() - (ATOL + RTOL * want.abs())).max())]
+                 + [float(((a - b).abs() - (BWD_ATOL + BWD_RTOL[torch.float32] * b.abs())).max())
+                    for a, b in zip(d_got, d_want)])
+    equal = bool(torch.equal(got, dl_fwd(x, loc, logscale, "direct"))) and all(
+        torch.equal(a, b) for a, b in zip(d_got, dl_bwd(x, loc, logscale, g, "direct")))
+    off = misaligned_copy(view)
+    off_loc, off_ls = torch.chunk(off, 2, dim=-1)
+    off_path = dl_kernel.forward_path(x, off_loc, off_ls)
+    refused = (refuses(lambda: dl_fwd(x, off_loc, off_ls, "tiled"))
+               and refuses(lambda: dl_bwd(x, off_loc, off_ls, g, "tiled")))
+    off_equal = bool(torch.equal(got, dl_fwd(x, off_loc, off_ls))) and all(
+        torch.equal(a, b) for a, b in zip(d_got, dl_bwd(x, off_loc, off_ls, g)))
+    say(f"K5 ragged k=3 B=7 31x31 ({ragged} pixels), tile path: tolerance excess {excess:.3e}; "
+        f"forward and backward equal to the direct path bit for bit: {equal}; a misaligned copy "
+        f"of the head takes the {off_path} path, gives the same bits ({off_equal}) and is "
+        f"refused on the tile path ({refused})")
+    if excess > 0 or not (equal and off_equal and refused) or off_path != "direct":
+        raise AssertionError("ragged or misaligned DL case: the paths disagree")
+    del x, loc, logscale, view, g, got, d_got, off
     torch.cuda.empty_cache()
     return fwd_err, bwd_err, fwd_cases, bwd_cases
 
@@ -1194,6 +1396,14 @@ def structure_path(smi: str):
     _took(paths["full"]["mdl_log_prob_backward"], "tiled", "the full step's MoDL backward")
     _took(paths["staged"]["mdl_null_backward"], "tiled", "the staged step's null backward")
     _took(paths["dma"]["mdl_null_backward"], "direct", "the dma step's null backward")
+    dl_head = structure["steps"]["dl_head"]
+    _took(dl_head["forward_paths"]["dl_log_prob"], "tiled", "the dl_head step's DL forward")
+    _took(paths["dl_head"]["dl_log_prob_backward"], "tiled", "the dl_head step's DL backward")
+    by_path["kernel_structure dl_head"].update(
+        {f"dl_log_prob {p}": n for p, n in dl_head["forward_paths"]["dl_log_prob"].items()})
+    by_path["kernel_structure dl_head"].update(
+        {f"dl_log_prob_backward {p}": n
+         for p, n in paths["dl_head"]["dl_log_prob_backward"].items()})
     say(f"kernel_structure backward launches by memory path: {paths}")
     if mdl_kernel.mdl_log_prob.__module__ != mdl_kernel.__name__:
         raise AssertionError("the MoDL likelihood was not put back after the probe")
@@ -1504,6 +1714,16 @@ def main_path(name: str, path: str, smi: str) -> dict:
         by_memory_path = mdl_kernel.backward_launches_by_path
         say(f"{name} train main path: MoDL backward launches by memory path {by_memory_path}")
         _took(by_memory_path, "tiled", f"the {name} train path's MoDL backward")
+    if own == "dl_log_prob":
+        say(f"{name} {path} main path: DL forward launches by memory path "
+            f"{dl_kernel.launches_by_path}, backward {dl_kernel.backward_launches_by_path}")
+        _took(dl_kernel.launches_by_path, "tiled", f"the {name} {path} path's DL forward")
+        counts.update({f"dl_log_prob {p}": n for p, n in dl_kernel.launches_by_path.items()})
+        if path == "train":
+            _took(dl_kernel.backward_launches_by_path, "tiled",
+                  f"the {name} train path's DL backward")
+            counts.update({f"dl_log_prob_backward {p}": n
+                           for p, n in dl_kernel.backward_launches_by_path.items()})
     return counts
 
 
@@ -1542,6 +1762,12 @@ def main() -> None:
                 "max_abs_err": max_abs_err, "library_ms": None, **case, **more}
 
     modl, dl = layouts["model05"], f"{layouts['model03']} halves"
+    # the DL kernels' launches on the main paths by memory path
+    dl_paths = {direction: {path: sum(counts.get(f"{kernel} {path}", 0)
+                                      for counts in by_path.values())
+                            for path in dl_kernel.PATHS}
+                for direction, kernel in (("forward", "dl_log_prob"),
+                                          ("backward", "dl_log_prob_backward"))}
 
     def null_record(direction, variant):
         case = io_cases[f"P3 {direction} {variant} float32 k=5 B={BATCH} {modl}"]
@@ -1572,10 +1798,18 @@ def main() -> None:
                bwd_cases[f"K1b/K3b float32 k=5 B={BATCH} {modl}"],
                max_abs_err_bf16=bwd_err["bfloat16"], tolerance_excess=bwd_excess),
         record("dl_log_prob", DL_SOURCE, REPLACES_DL, dl_err,
-               dl_cases[f"K5 f32 k=100 B={BATCH} {dl}"]),
+               dl_cases[f"K5 f32 k=100 B={BATCH} {dl}"],
+               launches_by_memory_path=dl_paths["forward"],
+               model_head_device_ms=dl_cases["model03 head k=100"]["device_ms"],
+               model_head_device_ms_direct=dl_cases["model03 head k=100"]["device_ms_direct"],
+               model_head_bound_ms=dl_cases["model03 head k=100"]["bound_ms"]),
         record("dl_log_prob_backward", DL_SOURCE, REPLACES_DL, dl_bwd_err,
                dl_bwd_cases[f"K5 f32 k=5 B={BATCH} {dl}"],
-               replaces_note=REPLACES_DL_BACKWARD_NOTE),
+               replaces_note=REPLACES_DL_BACKWARD_NOTE,
+               launches_by_memory_path=dl_paths["backward"],
+               model_head_device_ms=dl_bwd_cases["model03 head k=5"]["device_ms"],
+               model_head_device_ms_direct=dl_bwd_cases["model03 head k=5"]["device_ms_direct"],
+               model_head_bound_ms=dl_bwd_cases["model03 head k=5"]["bound_ms"]),
         record("sfu_probe", SFU_SOURCE, REPLACES_K6, k6_case["max_abs_err"], k6_case),
         sum_record("channel_sum[channel_minor,direct]", REPLACES_P1, "P1 channel_minor direct",
                    "direct", "library sum(-1)"),

@@ -502,6 +502,159 @@ def test_dl_kernels_refuse_what_they_do_not_take(cuda, bad):
     assert (dl_kernel.launches, dl_kernel.backward_launches) == before
 
 
+# the discretized-logistic kernels' two memory paths: (k, B, H, W) of the
+# train shape, the eval chunk, a ragged one (20,181 pixels, no multiple of a
+# tile) and 384 pixels (three whole tiles of the backward's 128, a whole and
+# a ragged one of the forward's 256)
+_DL_TILE_SHAPES = [(5, 128, 32, 32), (100, 128, 32, 32), (3, 7, 31, 31), (1, 3, 8, 16)]
+_DL_BIN = (0.0, 1.0, 1.0 / 255.0)
+
+
+def _dl_head(device, k, b, h, w, seed=0):
+    """x on the 256 levels with both edges in it, and a head conv's output
+    ``[k * b, 6, h, w]`` in channels-last memory, viewed as ``[k, b, h, w, 6]``
+    as the decoder hands it on, whose halves hit every branch."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=device).float() / 255.0
+    x[:, 0] = 0.0
+    x[:, -1] = 1.0
+    half = (k * b, 3, h, w)
+    far = (torch.rand(half, generator=gen, device=device) < 0.2).float()
+    loc = torch.randn(half, generator=gen, device=device) * 0.25 + 0.5 + 2.0 * far
+    logscale = torch.randn(half, generator=gen, device=device) - 3.0
+    logscale[torch.rand(half, generator=gen, device=device) < 0.1] = -9.0
+    conv = torch.cat([loc, logscale], dim=1).contiguous(memory_format=torch.channels_last)
+    return x, conv.reshape(k, b, 6, h, w).permute(0, 1, 3, 4, 2)
+
+
+def _dl_close(got, want, rtol):
+    return bool(((got - want).abs() <= 2e-5 + rtol * want.abs()).all())
+
+
+@pytest.mark.parametrize("shape", _DL_TILE_SHAPES)
+def test_dl_paths_agree_bit_for_bit(cuda, shape):
+    """The halves of a channels-last head take the tile path in both
+    directions; forced onto the direct path they give the same bits, and
+    both agree with the plain version. The backward's tile path hands loc's
+    and logscale's gradients as the halves of one head gradient."""
+    k, b, h, w = shape
+    x, head = _dl_head(cuda, k, b, h, w)
+    loc, logscale = torch.chunk(head, 2, dim=-1)
+    g = _cotangent(cuda, (k, b, 1, 1, 1)).expand(loc.shape)
+    assert dl_kernel.forward_path(x, loc, logscale) == "tiled"
+    assert dl_kernel.backward_path(x, loc, logscale, g) == "tiled"
+    before = dict(dl_kernel.launches_by_path), dict(dl_kernel.backward_launches_by_path)
+    tiled = dl_kernel.dl_log_prob(x, loc, logscale, *_DL_BIN)
+    direct = dl_kernel.dl_log_prob(x, loc, logscale, *_DL_BIN, path="direct")
+    d_tiled = dl_kernel.dl_backward(x, loc, logscale, g, *_DL_BIN)
+    d_direct = dl_kernel.dl_backward(x, loc, logscale, g, *_DL_BIN, path="direct")
+    torch.cuda.synchronize()
+    for counts, was in zip((dl_kernel.launches_by_path, dl_kernel.backward_launches_by_path),
+                           before):
+        assert counts == {"tiled": was["tiled"] + 1, "direct": was["direct"] + 1}
+    assert tiled.is_contiguous() and torch.equal(tiled, direct)
+    for a, c in zip(d_tiled, d_direct):
+        assert torch.equal(a, c)
+    assert d_tiled[1].data_ptr() == d_tiled[0].data_ptr() + 3 * 4  # one [.., 6] gradient
+    assert 1 <= dl_kernel.tile_blocks_per_sm() <= 16
+    assert 1 <= dl_kernel.tile_blocks_per_sm(backward=True) <= 16
+    ks = slice(0, min(k, 5))  # the plain version at the eval chunk's size is slow
+    want = discretized_logistic_log_prob(x, loc[ks], logscale[ks], low=0.0, high=1.0,
+                                         interval_width=1.0 / 255.0)
+    assert _dl_close(tiled[ks], want, 1e-5)
+    for a, c in zip(d_tiled, dl_kernel.dl_backward_plain(x, loc[ks], logscale[ks], g[ks],
+                                                         *_DL_BIN)):
+        assert _dl_close(a[ks], c, 2e-4)
+
+
+@pytest.mark.parametrize("layout", ["misaligned", "nchw", "sliced", "x_not_broadcast"])
+def test_dl_tile_path_refuses_operands_that_do_not_fit(cuda, layout):
+    """A misaligned copy of the head, NCHW halves, six of eight channels and
+    an x that is not broadcast over K take the direct path and agree with
+    the plain version; asked for the tile path they are refused, forward and
+    backward, and nothing is launched."""
+    x, head = _dl_head(cuda, 3, 2, 5, 7)
+    if layout == "misaligned":
+        head = _misaligned_like(head.contiguous())
+    elif layout == "nchw":
+        head = head.permute(0, 1, 4, 2, 3).contiguous().permute(0, 1, 3, 4, 2)
+    elif layout == "sliced":
+        wide = torch.zeros((3, 2, 5, 7, 8), device=cuda)
+        wide[..., :6] = head
+        head = wide[..., :6]
+    else:
+        x = x.expand(3, *x.shape).contiguous()
+    loc, logscale = torch.chunk(head, 2, dim=-1)
+    g = _cotangent(cuda, loc.shape)
+    assert dl_kernel.forward_path(x, loc, logscale) == "direct"
+    assert dl_kernel.backward_path(x, loc, logscale, g) == "direct"
+    before = dict(dl_kernel.launches_by_path), dict(dl_kernel.backward_launches_by_path)
+    got = dl_kernel.dl_log_prob(x, loc, logscale, *_DL_BIN)
+    d_got = dl_kernel.dl_backward(x, loc, logscale, g, *_DL_BIN)
+    after = ({**before[0], "direct": before[0]["direct"] + 1},
+             {**before[1], "direct": before[1]["direct"] + 1})
+    assert (dl_kernel.launches_by_path, dl_kernel.backward_launches_by_path) == after
+    want = discretized_logistic_log_prob(x, loc, logscale, low=0.0, high=1.0,
+                                         interval_width=1.0 / 255.0)
+    assert _dl_close(got, want, 1e-5)
+    for a, c in zip(d_got, dl_kernel.dl_backward_plain(x, loc, logscale, g, *_DL_BIN)):
+        assert _dl_close(a, c, 2e-4)
+    with pytest.raises(RuntimeError, match="tiled path"):
+        dl_kernel.dl_log_prob(x, loc, logscale, *_DL_BIN, path="tiled")
+    with pytest.raises(RuntimeError, match="tiled path"):
+        dl_kernel.dl_backward(x, loc, logscale, g, *_DL_BIN, path="tiled")
+    with pytest.raises(RuntimeError, match="tiled path"):
+        dl_kernel.dl_log_prob_head(x, head, *_DL_BIN, path="tiled")
+    assert (dl_kernel.launches_by_path, dl_kernel.backward_launches_by_path) == after
+
+
+@pytest.mark.parametrize("shape", [(5, 128, 32, 32), (3, 7, 31, 31)])
+def test_dl_head_gradient_through_autograd_is_the_direct_paths_joined_halves(cuda, shape):
+    """As the model differentiates it: the head conv's output is the leaf,
+    ``dl_log_prob_head`` takes its ``[k, B, H, W, 6]`` view. On the tile path
+    autograd's gradient is the backward kernel's output, with no ``cat``
+    after it; it equals, bit for bit, the direct path's (loc's and
+    logscale's gradients joined) and the joined halves of ``dl_backward``."""
+    k, b, h, w = shape
+    x, head = _dl_head(cuda, k, b, h, w)
+    conv = head.permute(0, 1, 4, 2, 3).reshape(k * b, 6, h, w)
+    weights = _cotangent(cuda, (k, b), 1)
+
+    def grad_of(path):
+        leaf = conv.detach().requires_grad_(True)
+        view = leaf.reshape(k, b, 6, h, w).permute(0, 1, 3, 4, 2)
+        out = dl_kernel.dl_log_prob_head(x, view, *_DL_BIN, path=path)
+        (out.sum(dim=(-1, -2, -3)) * weights).sum().backward()
+        return leaf.grad.reshape(k, b, 6, h, w).permute(0, 1, 3, 4, 2)
+
+    before = dict(dl_kernel.launches_by_path), dict(dl_kernel.backward_launches_by_path)
+    tiled = grad_of(None)
+    assert dl_kernel.launches_by_path == {**before[0], "tiled": before[0]["tiled"] + 1}
+    assert dl_kernel.backward_launches_by_path == {**before[1],
+                                                   "tiled": before[1]["tiled"] + 1}
+    direct = grad_of("direct")
+    assert torch.equal(tiled, direct)
+    loc, logscale = torch.chunk(head, 2, dim=-1)
+    g = weights[:, :, None, None, None].expand(loc.shape)
+    joined = torch.cat(dl_kernel.dl_backward(x, loc, logscale, g, *_DL_BIN, path="direct"), -1)
+    assert torch.equal(tiled, joined)
+
+
+def test_model03_takes_the_dl_tile_path_in_both_directions(cuda):
+    """model03's head hands the likelihood the halves of a channels-last
+    head: a forward and backward launch the DL kernels on the tile path
+    alone, and the observation carries its head."""
+    model = build_model(MODELS["model03"], torch.Generator().manual_seed(0))
+    x = torch.randint(0, 256, (4, 32, 32, 3), device=cuda).float() / 255.0
+    for counts in (dl_kernel.launches_by_path, dl_kernel.backward_launches_by_path):
+        counts.update(dict.fromkeys(dl_kernel.PATHS, 0))
+    pxz = model(x, 2, generator=torch.Generator(cuda).manual_seed(0))[2].dist
+    assert pxz.head is not None and pxz._halves_of_head()
+    pxz.reduced_log_prob(x).sum().backward()
+    assert dl_kernel.launches_by_path == {"tiled": 1, "direct": 0}
+    assert dl_kernel.backward_launches_by_path == {"tiled": 1, "direct": 0}
+
+
 def test_build_model_lands_on_the_card_by_default(cuda):
     model = build_model(MODELS["model03"], torch.Generator().manual_seed(0))
     assert all(p.is_cuda for p in model.parameters())

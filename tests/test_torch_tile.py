@@ -224,7 +224,7 @@ def test_kernel_outputs_are_seeded_and_compare_bit_for_bit(tmp_path, monkeypatch
     size = dict(k=2, batch=3, side=4, k_eval=3, batch_eval=2, sum_shape=(2, 5, 8))
     small = kernel_outputs.outputs("cpu", **size)
     again = kernel_outputs.outputs("cpu", **size)
-    assert len(small) == 16 and set(small) == set(again)
+    assert len(small) == 20 and set(small) == set(again)
     for name, value in small.items():
         assert torch.isfinite(value.float()).all(), name
         assert torch.equal(value, again[name]), name
@@ -232,6 +232,8 @@ def test_kernel_outputs_are_seeded_and_compare_bit_for_bit(tmp_path, monkeypatch
     assert small["mdl_log_prob float32 nhwc"].shape == (2, 3, 4, 4, 1)
     assert small["mdl_log_prob k=3 bfloat16 nchw"].shape == (3, 2, 4, 4, 1)
     assert small["channel_sum channel_first"].shape == (2, 8)
+    assert small["dl_log_prob_backward float32 head halves d_loc"].shape == (2, 3, 4, 4, 3)
+    assert small["dl_log_prob k=3 float32 head halves"].shape == (3, 2, 4, 4, 3)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(kernel_outputs, "outputs", lambda: small)

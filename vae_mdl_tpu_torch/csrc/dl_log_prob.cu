@@ -12,28 +12,61 @@
 // backward reads the same plus the cotangent and writes 8; at the model's
 // eval chunk (100 samples x 128 images of 32 x 32 x 3 = 39.3 M elements) that
 // is 472 MB, 0.14 ms at 3.35 TB/s. Per element they run one exp, two
-// sigmoids and a log or a softplus in accurate f32, about 6 transcendentals:
-// at that size the math takes longer than the bytes.
+// sigmoids and a log or a softplus in accurate f32, about 6 transcendentals,
+// which the special-function units take in a third of that time: the bytes
+// bound them.
 //
-// Design, first version (right before fast). The TPU kernel flattens, pads
-// to (rows, 128) tiles and materialises every broadcast; none of that is
-// carried over:
-// - one thread per element of the broadcast shape, a grid-stride loop;
-// - each input is read through its own element strides: x with stride 0
-//   over the samples, loc and logscale as channel slices of the head conv's
-//   NCHW output, the cotangent as the sum's backward expands it;
-// - the wrapper orders the dimensions so that neighbouring threads walk
-//   loc's smallest stride (W of the NCHW head, not C), merges dimensions
-//   that all operands step through alike, and allocates the outputs dense in
-//   that order, so a thread's linear index is its output offset;
-// - the dimension count is a template parameter (1..6), so the index
-//   arithmetic unrolls, and runs in 32 bits when every offset fits;
-// - the cascade and its derivative are dl_cascade.cuh's device functions,
-//   with the bin's low, high, half width and log width as arguments.
+// Where the operands lie. The model's head is a channels-last conv output,
+// [K, B, H, W, 6] dense with the channel fastest; loc and logscale are its
+// two halves (channels 0-2 and 3-5), views with strides [.., 6, 1], and x is
+// [B, H, W, 3], broadcast over K. Each direction has two memory paths, chosen
+// by the caller (ops/cuda/dl_kernel.py forward_path, backward_path) and
+// passed in: no entry point tries one after the other.
+// - The tile path (mdl_tile.cuh, the walk the MoDL kernels take) for
+//   exactly that layout: loc and logscale the two halves of one dense
+//   channel-minor float32 head with C = 3 (logscale 3 floats after loc), on
+//   a 16-byte aligned address, x broadcast over K. A tile of the head's rows
+//   (24 bytes a pixel) comes into shared memory by one bulk asynchronous
+//   copy; a thread works out each of its pixels' index once, reads the
+//   pixel's three x values once, and runs the three channels' cascades on
+//   its row. The forward stores the pixel's three values into the dense
+//   output [K, B, H, W, 3] (consecutive threads, consecutive 12-byte runs);
+//   the backward writes (g d_loc, g d_ls) over the row it has consumed,
+//   which is the head's own gradient [K, B, H, W, 6], and one bulk store
+//   puts the tile into device memory: the caller gets the head's gradient
+//   in one piece, with no concatenation of two halves after it. The cotangent is read
+//   through its own strides, one value a channel (in the model the event
+//   sum's expansion of [K, B, 1, 1, 1]). The rows are short (128 pixels are
+//   3 KB), so the forward's threads walk two pixels each, a tile of 256
+//   pixels a block; the backward walks one. Both run at the occupancy the
+//   card reports (16 and 12 blocks of 128 threads an SM). Of the tiles timed
+//   in turns on model03's own head (1, 2, 4 and 8 pixels a thread; one or
+//   two buffers a block for the forward; the backward at 32 registers for
+//   16 blocks), these won; PERF.md keeps the losers' times. More pixels a
+//   thread hold more registers, and a second buffer hid the copies no
+//   better than the SM's other blocks do. Asked for the tile path on
+//   operands that do not fit, an entry point returns cudaErrorInvalidValue.
+// - The direct path for any other layout (contiguous operands, NCHW halves,
+//   a sliced or misaligned head, a logscale that went through tanh, x not
+//   broadcast over K, any rank): one thread per element of the broadcast
+//   shape, a grid-stride loop, each input read through its own element
+//   strides; the wrapper orders the dimensions so that neighbouring threads
+//   walk loc's smallest stride (the channel of a channels-last head, W of an
+//   NCHW one), merges dimensions that all operands step through alike, and
+//   allocates the outputs dense in that order, so a thread's linear index is
+//   its output offset; the dimension count is a template parameter (1..6),
+//   so the index arithmetic unrolls, and runs in 32 bits when every offset
+//   fits. On the channels-last halves that costs two runtime div/mod pairs
+//   an element, each pixel's x read once a channel, and each sector of the
+//   head fetched by two load instructions (loc's half, then logscale's).
+// - Both paths call the same device functions of dl_cascade.cuh, with the
+//   bin's low, high, half width and log width as arguments, built without
+//   fast math and with -fmad=false: they give the same bits.
 //
 // Each C entry point returns cudaGetLastError() after the launch.
 
 #include "dl_cascade.cuh"
+#include "mdl_tile.cuh"
 
 namespace {
 
@@ -97,6 +130,67 @@ __global__ void dl_log_prob_backward_kernel(
     d_loc[i] = gv * d.d_loc;
     d_ls[i] = gv * d.d_ls;
   }
+}
+
+// -- the tile path -------------------------------------------------------------
+
+constexpr int kChannels = 3;            // loc's and logscale's channels
+constexpr int kRow = 2 * kChannels;     // the head's row: loc, then logscale
+constexpr int kForwardPixels = 2;       // the forward's pixels a thread
+
+// The forward's body: the pixel's three values from its row.
+struct TileForward {
+  dlc::Bin bin;
+  __device__ __forceinline__ void operator()(const float* row, float x0, float x1, float x2,
+                                             float* out) const {
+    out[0] = dlc::dl_log_prob(x0, row[0], row[kChannels], bin);
+    out[1] = dlc::dl_log_prob(x1, row[1], row[kChannels + 1], bin);
+    out[2] = dlc::dl_log_prob(x2, row[2], row[kChannels + 2], bin);
+  }
+};
+
+__global__ void __launch_bounds__(mdlt::kTilePixels)
+    dl_log_prob_kernel_tiled(const mdlt::ReadOperands<float> a, const dlc::Bin bin) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  mdlt::for_each_tile_read<float, kChannels, kForwardPixels>(a, tile_smem, TileForward{bin});
+}
+
+// The backward's body: the head's gradient over the row it has read.
+struct TileBackward {
+  dlc::Bin bin;
+  __device__ __forceinline__ void channel(float* row, int c, float x, float gv) const {
+    const dlc::DLGrad d = dlc::dl_grads(x, row[c], row[kChannels + c], bin);
+    row[c] = gv * d.d_loc;
+    row[kChannels + c] = gv * d.d_ls;
+  }
+  __device__ __forceinline__ void operator()(float* row, float*, float x0, float x1, float x2,
+                                             float g0, float g1, float g2) const {
+    channel(row, 0, x0, g0);
+    channel(row, 1, x1, g1);
+    channel(row, 2, x2, g2);
+  }
+};
+
+__global__ void __launch_bounds__(mdlt::kTilePixels)
+    dl_log_prob_backward_kernel_tiled(const mdlt::Operands<float> a, const dlc::Bin bin) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  mdlt::for_each_tile<float, false, true>(a, tile_smem, TileBackward{bin});
+}
+
+const size_t kForwardSmem = mdlt::read_smem_bytes(kRow, sizeof(float), kForwardPixels);
+const size_t kBackwardSmem = mdlt::smem_bytes(kRow, sizeof(float), false);
+
+// Whether loc and logscale ([K, B, H, W, 3], element strides given) are the
+// two halves of one dense channel-minor float32 head [K, B, H, W, 6] on a
+// 16-byte aligned address, and x (strides over the same shape) is broadcast
+// over K: what the tile path takes.
+bool tile_fits(const float* loc, const float* logscale, int64_t K, int64_t B, int64_t H,
+               int64_t W, int64_t xs_k, int64_t ls_k, int64_t ls_b, int64_t ls_h, int64_t ls_w,
+               int64_t ls_c, int64_t ss_k, int64_t ss_b, int64_t ss_h, int64_t ss_w,
+               int64_t ss_c) {
+  return mdlt::channel_minor_dense(K, B, H, W, kRow, ls_k, ls_b, ls_h, ls_w, ls_c) &&
+         mdlt::channel_minor_dense(K, B, H, W, kRow, ss_k, ss_b, ss_h, ss_w, ss_c) &&
+         logscale == loc + kChannels && mdlt::aligned16(loc) && (K == 1 || xs_k == 0);
 }
 
 dim3 grid_for(int64_t total) {
@@ -237,4 +331,69 @@ extern "C" int dl_log_prob_backward(
   float* ds = static_cast<float*>(d_ls);
   if (fits_32(c)) return launch_backward<uint32_t>(c, s, xf, lf, sf, gf, dl, ds, bin);
   return launch_backward<int64_t>(c, s, xf, lf, sf, gf, dl, ds, bin);
+}
+
+// The tile path of the forward. loc, logscale: float32 [K, B, H, W, 3] views
+// at the element strides given (ls_*: loc's, ss_*: logscale's), which must be
+// the two halves of one dense channel-minor head [K, B, H, W, 6] on a 16-byte
+// aligned address; x: float32 read at the strides given over the same shape,
+// 0 over K (or K = 1); out: contiguous float32 [K, B, H, W, 3]. Returns
+// cudaErrorInvalidValue for operands that do not fit, else a cudaError_t.
+extern "C" int dl_log_prob_forward_tiled(
+    const void* x, const void* loc, const void* logscale, void* out, int64_t K, int64_t B,
+    int64_t H, int64_t W, int64_t xs_k, int64_t xs_b, int64_t xs_h, int64_t xs_w,
+    int64_t xs_c, int64_t ls_k, int64_t ls_b, int64_t ls_h, int64_t ls_w, int64_t ls_c,
+    int64_t ss_k, int64_t ss_b, int64_t ss_h, int64_t ss_w, int64_t ss_c, float low,
+    float high, float half_bin, float log_width, void* stream) {
+  const float* lf = static_cast<const float*>(loc);
+  if (K < 0 || B < 0 || H < 0 || W < 0 ||
+      !tile_fits(lf, static_cast<const float*>(logscale), K, B, H, W, xs_k, ls_k, ls_b, ls_h,
+                 ls_w, ls_c, ss_k, ss_b, ss_h, ss_w, ss_c))
+    return cudaErrorInvalidValue;
+  if (K * B * H * W == 0) return cudaSuccess;
+  const mdlt::ReadOperands<float> a{static_cast<const float*>(x), lf, static_cast<float*>(out),
+                                    kRow, K, B, H, W, xs_b, xs_h, xs_w, xs_c};
+  return mdlt::launch_persistent(dl_log_prob_kernel_tiled, kForwardSmem, K * B * H * W,
+                                 mdlt::kTilePixels * kForwardPixels,
+                                 static_cast<cudaStream_t>(stream), a,
+                                 dlc::Bin{low, high, half_bin, log_width});
+}
+
+// The tile path of the backward: operands as for the forward's, g the
+// float32 cotangent [K, B, H, W, 3] read at its strides (zero strides
+// allowed), d_head a contiguous float32 [K, B, H, W, 6] on a 16-byte aligned
+// address: g d/d loc in channels 0-2, g d/d logscale in 3-5, the gradient of
+// the head loc and logscale are the halves of. Returns cudaErrorInvalidValue
+// for operands that do not fit, else a cudaError_t.
+extern "C" int dl_log_prob_backward_tiled(
+    const void* x, const void* loc, const void* logscale, const void* g, void* d_head,
+    int64_t K, int64_t B, int64_t H, int64_t W, int64_t xs_k, int64_t xs_b, int64_t xs_h,
+    int64_t xs_w, int64_t xs_c, int64_t ls_k, int64_t ls_b, int64_t ls_h, int64_t ls_w,
+    int64_t ls_c, int64_t ss_k, int64_t ss_b, int64_t ss_h, int64_t ss_w, int64_t ss_c,
+    int64_t gs_k, int64_t gs_b, int64_t gs_h, int64_t gs_w, int64_t gs_c, float low,
+    float high, float half_bin, float log_width, void* stream) {
+  const float* lf = static_cast<const float*>(loc);
+  if (K < 0 || B < 0 || H < 0 || W < 0 ||
+      !tile_fits(lf, static_cast<const float*>(logscale), K, B, H, W, xs_k, ls_k, ls_b, ls_h,
+                 ls_w, ls_c, ss_k, ss_b, ss_h, ss_w, ss_c) ||
+      !mdlt::aligned16(d_head))
+    return cudaErrorInvalidValue;
+  if (K * B * H * W == 0) return cudaSuccess;
+  mdlt::Operands<float> a{static_cast<const float*>(x), lf, static_cast<const float*>(g),
+                          static_cast<float*>(d_head), kRow, K, B, H, W, xs_b, xs_h, xs_w, xs_c,
+                          gs_k, gs_b, gs_h, gs_w, gs_c};
+  return mdlt::launch_persistent(dl_log_prob_backward_kernel_tiled, kBackwardSmem,
+                                 K * B * H * W, mdlt::kTilePixels,
+                                 static_cast<cudaStream_t>(stream), a,
+                                 dlc::Bin{low, high, half_bin, log_width});
+}
+
+// Blocks an SM of the current device holds of the forward's (backward = 0)
+// or the backward's tile path, as the occupancy query sizes its grid.
+extern "C" int dl_log_prob_tile_blocks_per_sm(int backward) {
+  return backward ? mdlt::blocks_per_sm(
+                        reinterpret_cast<const void*>(dl_log_prob_backward_kernel_tiled),
+                        kBackwardSmem)
+                  : mdlt::blocks_per_sm(reinterpret_cast<const void*>(dl_log_prob_kernel_tiled),
+                                        kForwardSmem);
 }

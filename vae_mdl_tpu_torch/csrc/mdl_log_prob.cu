@@ -173,11 +173,13 @@ __global__ void mdl_log_prob_kernel(
   }
 }
 
-// The forward's tile-path body: the pixel's row in shared memory, x as stored.
+// The forward's tile-path body: the pixel's row in shared memory, x as
+// stored, its one value stored at `out`.
 template <typename T, int N>
 struct TileForward {
-  __device__ __forceinline__ float operator()(const T* row, float x0, float x1, float x2) const {
-    return pixel_log_prob<T, N>(row, 1, x0 * 2.0f - 1.0f, x1 * 2.0f - 1.0f, x2 * 2.0f - 1.0f);
+  __device__ __forceinline__ void operator()(const T* row, float x0, float x1, float x2,
+                                             float* out) const {
+    *out = pixel_log_prob<T, N>(row, 1, x0 * 2.0f - 1.0f, x1 * 2.0f - 1.0f, x2 * 2.0f - 1.0f);
   }
 };
 

@@ -70,6 +70,12 @@ class DiscretizedLogistic(Distribution):
     (``ops/cuda/dl_kernel.py``) and needs CUDA parameters; ``False`` takes
     the plain version. ``nn.decoders.resolve_use_pallas`` makes the choice
     from the config.
+
+    ``head``, where given, is the tensor whose last axis loc and logscale
+    are the two halves of (``make_observation`` hands on the head conv's
+    output): the kernel then takes the head as its operand
+    (``dl_log_prob_head``), so that autograd gets the head's gradient in one
+    piece. It changes no value: loc and logscale stay the parameters.
     """
 
     loc: torch.Tensor
@@ -79,10 +85,21 @@ class DiscretizedLogistic(Distribution):
     levels: float = 256.0
     event_axes: Tuple[int, ...] = (-1, -2, -3)
     use_pallas: bool = False
+    head: Optional[torch.Tensor] = None
 
     @property
     def interval_width(self) -> float:
         return (self.high - self.low) / (self.levels - 1.0)
+
+    def _halves_of_head(self) -> bool:
+        """Whether loc and logscale are still the halves of ``head``."""
+        head = self.head
+        if head is None or head.shape[-1] != 2 * self.loc.shape[-1]:
+            return False
+        return (self.loc.data_ptr() == head.data_ptr()
+                and self.logscale.data_ptr()
+                == head.data_ptr() + self.loc.shape[-1] * head.stride(-1) * head.element_size()
+                and self.loc.shape == self.logscale.shape == head.shape[:-1] + self.loc.shape[-1:])
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_pallas:
@@ -91,8 +108,10 @@ class DiscretizedLogistic(Distribution):
                     "use_pallas=True selects the CUDA discretized-logistic kernel, "
                     f"but the parameters lie on {self.loc.device}; pass "
                     "use_pallas=None (auto) or False for CPU tensors")
-            from vae_mdl_tpu_torch.ops.cuda.dl_kernel import dl_log_prob
+            from vae_mdl_tpu_torch.ops.cuda.dl_kernel import dl_log_prob, dl_log_prob_head
 
+            if self._halves_of_head():
+                return dl_log_prob_head(x, self.head, self.low, self.high, self.interval_width)
             return dl_log_prob(x, self.loc, self.logscale, self.low, self.high,
                                self.interval_width)
         return discretized_logistic_log_prob(

@@ -65,12 +65,15 @@ def make_observation(out: torch.Tensor, likelihood: str, bound_logstd: bool = Fa
             logstd = torch.tanh(logstd)
         return Normal(mu, torch.exp(logstd), event_axes=_IMAGE_AXES)
     if likelihood == "dl":
-        # the two halves of the head's channels, as views of its output
+        # the two halves of the head's channels, as views of its output; the
+        # head goes along where they are its halves, so that the kernel
+        # differentiates it in one piece
         mu, logstd = torch.chunk(out, 2, dim=-1)
         if bound_logstd:
             logstd = torch.tanh(logstd)
         return DiscretizedLogistic(mu, logstd, low=0.0, high=1.0, levels=256.0,
-                                   event_axes=_IMAGE_AXES, use_pallas=use_pallas)
+                                   event_axes=_IMAGE_AXES, use_pallas=use_pallas,
+                                   head=None if bound_logstd else out)
     if likelihood == "mdl":
         if io_dtype is not None:
             out = out.to(DTYPES[io_dtype])

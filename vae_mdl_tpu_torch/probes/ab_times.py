@@ -27,9 +27,19 @@ Measured:
   backward at k = 5), from the profiler;
 - the channel sums of ``probes/kernel_isolate.py`` (P1 direct, P1 staged at
   a tile of 256) and ``kernel_isolate2.py`` (P2), with the library's sums;
+- the discretized-logistic pair on the halves of a channels-last head (the
+  model's layout): the forward at k = 5 and 100 and the backward at k = 5,
+  on branch-heavy inputs (``chip_smoke.py``'s) and on model03's own head
+  output at initialisation, per wrapper call (CUDA events) and on the device
+  (a replayed CUDA graph); forward + backward with the head as the leaf, as
+  the model differentiates it: device kernels a call and their device ms;
+- five model03 float32 train steps under the profiler: device kernels,
+  device busy and the DL kernels' device ms a step;
 - ``evaluate_llh`` at 5000 samples in k-chunks of 100 on one batch of 128
-  of model05 and model03, float32 and bfloat16 configs, after a 200-sample
-  warm-up: imgs/s from CUDA events.
+  of model05 and model03, float32 and bfloat16 configs, and model03's
+  through the plain likelihood too (``use_pallas=False``, the control of
+  what the kernels buy there), after a 200-sample warm-up: imgs/s from CUDA
+  events.
 
 Inputs come from seeded generators on the card, so two checkouts see the
 same values.
@@ -47,10 +57,13 @@ import vae_mdl_tpu_torch
 from vae_mdl_tpu_torch.evaluation.harness import evaluate_llh
 from vae_mdl_tpu_torch.models.vae import build_model
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
-from vae_mdl_tpu_torch.ops.cuda import io_probe, mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel
 from vae_mdl_tpu_torch.probes.kernel_isolate import probe_params
 from vae_mdl_tpu_torch.probes.roofline import head_parameters, kernel_device_ms
+from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
+from vae_mdl_tpu_torch.train.steps import make_train_step
 from vae_mdl_tpu_torch.utils.timing import cuda_ms as _cuda_ms
+from vae_mdl_tpu_torch.utils.timing import device_times, graph_ms, kernel_class
 
 BATCH, SIDE, N_MIX = 128, 32, 5
 CONTRACTS = (("K1f/K1b", 5, torch.float32), ("K2f/K2b", 5, torch.bfloat16),
@@ -155,14 +168,139 @@ def model_device_ms(say) -> dict:
     return ms
 
 
+DL_BIN = (0.0, 1.0, 1.0 / 255.0)  # model03's head: 256 levels on [0, 1]
+
+
+def dl_head_inputs(k: int, gen: torch.Generator):
+    """``chip_smoke.py``'s branch-heavy DL inputs (x with 0 and 1 in it,
+    20% far-off locations, 10% logscales of -9) as the halves of a head conv
+    output ``[k * B, 6, 32, 32]`` in channels-last memory: (x, the head
+    ``[k, B, 32, 32, 6]``)."""
+    x = torch.randint(0, 256, (BATCH, SIDE, SIDE, 3), generator=gen, device="cuda") / 255.0
+    x[:, 0] = 0.0
+    x[:, -1] = 1.0
+    half = (k * BATCH, 3, SIDE, SIDE)
+    far = (torch.rand(half, generator=gen, device="cuda") < 0.2).float()
+    low = torch.rand(half, generator=gen, device="cuda") < 0.1
+    loc = torch.randn(half, generator=gen, device="cuda") * 0.25 + 0.5 + 2.0 * far
+    logscale = torch.where(low, torch.full(half, -9.0, device="cuda"),
+                           torch.randn(half, generator=gen, device="cuda") - 3.0)
+    conv = torch.cat([loc, logscale], dim=1).contiguous(memory_format=torch.channels_last)
+    return x.float(), conv.reshape(k, BATCH, 6, SIDE, SIDE).permute(0, 1, 3, 4, 2)
+
+
+def model03_head(k: int):
+    """model03's head output at initialisation on one seeded batch: (x, the
+    head ``[k, B, 32, 32, 6]`` whose halves loc and logscale are)."""
+    batch = np.random.default_rng(0).integers(0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)
+    x = torch.as_tensor(batch, device="cuda").float() / 255.0
+    model = build_model(MODELS["model03"], torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        dist = model(x, k, generator=torch.Generator("cuda").manual_seed(0))[2].dist
+    loc = dist.loc
+    return x, loc.as_strided(loc.shape[:-1] + (6,), loc.stride()[:-1] + (1,))
+
+
+def _dl_log_prob_of_head(x, head):
+    """The log-prob with the head as the operand: through the head-level
+    entry where the checkout has one, else through its halves."""
+    if hasattr(dl_kernel, "dl_log_prob_head"):
+        return dl_kernel.dl_log_prob_head(x, head, *DL_BIN)
+    return dl_kernel.dl_log_prob(x, *torch.chunk(head, 2, dim=-1), *DL_BIN)
+
+
+def dl_times(say) -> dict:
+    """The DL pair on the halves of a channels-last head, each checkout on
+    its own default path: ms a wrapper call and on the device, and forward +
+    backward with the head as the leaf."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ms = {}
+    for source in ("inputs", "model03"):
+        for k in (5, 100):
+            x, head = dl_head_inputs(k, gen) if source == "inputs" else model03_head(k)
+            loc, logscale = torch.chunk(head, 2, dim=-1)
+            tag = f"{source} k={k}"
+            reps = 20 if k == 5 else 10
+            with torch.inference_mode():
+                fwd = lambda: dl_kernel.dl_log_prob(x, loc, logscale, *DL_BIN)  # noqa: E731
+                ms[f"DL forward {tag}"] = cuda_ms(fwd, reps)
+                ms[f"DL forward device {tag}"] = float(np.median([graph_ms(fwd, reps)
+                                                                  for _ in range(3)]))
+            line = (f"DL {tag}: forward {ms[f'DL forward {tag}']:.4f} ms, device "
+                    f"{ms[f'DL forward device {tag}']:.4f}")
+            if k == 5:
+                g = torch.randn((k, BATCH, 1, 1, 1), generator=gen, device="cuda").expand(
+                    loc.shape)
+                bwd = lambda: dl_kernel.dl_backward(x, loc, logscale, g, *DL_BIN)  # noqa: E731
+                ms[f"DL backward {tag}"] = cuda_ms(bwd, reps)
+                ms[f"DL backward device {tag}"] = float(np.median([graph_ms(bwd, reps)
+                                                                   for _ in range(3)]))
+
+                def fwd_bwd():
+                    leaf = head.detach().requires_grad_(True)
+                    return torch.autograd.grad(_dl_log_prob_of_head(x, leaf), [leaf], g)
+
+                fwd_bwd()
+                _, kernels = device_times(lambda: [fwd_bwd() for _ in range(10)])
+                n = sum(count for count, _ in kernels.values()) / 10
+                device = sum(t for _, t in kernels.values()) / 10
+                ms[f"DL fwd+bwd kernels {tag}"] = n
+                ms[f"DL fwd+bwd device {tag}"] = device
+                line += (f"; backward {ms[f'DL backward {tag}']:.4f} ms, device "
+                         f"{ms[f'DL backward device {tag}']:.4f}; fwd+bwd on the head leaf: "
+                         f"{n:.1f} kernels a call, {device:.4f} ms on the device ("
+                         + ", ".join(f"{name[:40]} x{count / 10:.1f}"
+                                     for name, (count, _) in sorted(kernels.items())) + ")")
+                del g
+            say(line)
+            del x, head, loc, logscale
+    torch.cuda.empty_cache()
+    return ms
+
+
+def train_step_profile(say) -> dict:
+    """Five model03 float32 train steps (batch 128, k = 5) under the
+    profiler after two warm-up steps: device kernels, device busy and the DL
+    kernels' device ms, each a step."""
+    pool = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, (7, BATCH, 32, 32, 3), dtype=np.uint8), device="cuda")
+    cfg = experiment("model03")
+    model = build_model(cfg.model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg.train)
+    step = make_train_step(model, cfg, make_optimizer(cfg.train))
+    for batch in pool[:2]:
+        state, _ = step(state, batch)
+
+    def five_steps():
+        nonlocal state
+        for batch in pool[2:]:
+            state, _ = step(state, batch)
+
+    wall, kernels = device_times(five_steps)
+    by_class: dict = {}
+    for name, (_, t) in kernels.items():
+        by_class[kernel_class(name)] = by_class.get(kernel_class(name), 0.0) + t / 5
+    out = {"train model03 f32 kernels a step": sum(c for c, _ in kernels.values()) / 5,
+           "train model03 f32 device busy a step": sum(by_class.values()),
+           "train model03 f32 traced wall a step": wall / 5,
+           "train model03 f32 DL forward a step": by_class.get("DL forward", 0.0),
+           "train model03 f32 DL backward a step": by_class.get("DL backward", 0.0)}
+    say("model03 train step f32: " + ", ".join(f"{key[len('train model03 f32 '):]} {v:.4f}" for key, v in out.items()))
+    return out
+
+
 def eval_rates(say) -> dict:
     images = np.random.default_rng(0).integers(0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)
     rates = {}
     for name in ("model05", "model03"):
         base = MODELS[name]
         io_dtype = "bfloat16" if base.likelihood == "mdl" else None
-        for which, cfg in (("f32", base), ("bf16", dataclasses.replace(
-                base, compute_dtype="bfloat16", likelihood_io_dtype=io_dtype))):
+        configs = [("f32", base), ("bf16", dataclasses.replace(
+            base, compute_dtype="bfloat16", likelihood_io_dtype=io_dtype))]
+        if name == "model03":  # the plain likelihood on the same weights: the control
+            configs += [(f"{which} plain", dataclasses.replace(cfg, use_pallas=False))
+                        for which, cfg in configs]
+        for which, cfg in configs:
             model = build_model(cfg, torch.Generator().manual_seed(0)).eval()
             ecfg = experiment(name, model=cfg)
             evaluate_llh(model, ecfg, images, n_samples=200, k_chunk=100, batch_size=BATCH)
@@ -190,6 +328,8 @@ def main(argv) -> int:
     print(f"{argv[1]}: {package} on {torch.cuda.get_device_name(0)}", flush=True)
     ms = kernel_times(lambda line: print(f"{argv[1]}: {line}", flush=True))
     ms.update(model_device_ms(lambda line: print(f"{argv[1]}: {line}", flush=True)))
+    ms.update(dl_times(lambda line: print(f"{argv[1]}: {line}", flush=True)))
+    ms.update(train_step_profile(lambda line: print(f"{argv[1]}: {line}", flush=True)))
     rates = eval_rates(lambda line: print(f"{argv[1]}: {line}", flush=True))
     print(json.dumps({"label": argv[1], "package": package, "ms": ms, "imgs_per_s": rates}))
     return 0

@@ -8,7 +8,10 @@ checkouts see the same values: the MoDL forward and backward and the
 discretized-logistic forward and backward, each at the model's train shape
 (k = 5, batch 128, 32 x 32) in float32 and, for the MoDL, bfloat16, in the
 channel-minor layout the model hands on and in NCHW; the MoDL forward also at
-the eval chunk's k = 100 (batch 16) in both dtypes and both layouts; and the
+the eval chunk's k = 100 (batch 16) in both dtypes and both layouts; the
+discretized-logistic pair also on the two halves of one dense channel-minor
+head ``[k, B, 32, 32, 6]`` (what model03's head hands on: the tile path,
+where a checkout has one), the forward at k = 100 (batch 16) too; and the
 channel-first channel sum at ``[100, 50, 1024]``. Only the public wrappers
 are called with their default paths, so the module runs against any checkout
 that has them, and each checkout takes its own paths. Run as a file, this
@@ -71,8 +74,12 @@ def outputs(device: str = "cuda", k: int = K, batch: int = BATCH, side: int = SI
     logscale = (rng.standard_normal(lead + (3,)) * 1.5 - 3.0).astype(np.float32)
     p_eval = _modl_params(rng, (k_eval, batch_eval, side, side))
     summed = rng.standard_normal(sum_shape, dtype=np.float32)
-    x, p, g, loc, logscale, p_eval, summed = (
-        torch.from_numpy(a).to(device) for a in (x, p, g, loc, logscale, p_eval, summed))
+    head_eval = np.concatenate([0.5 + 0.3 * rng.standard_normal((k_eval, batch_eval, side, side, 3)),
+                                rng.standard_normal((k_eval, batch_eval, side, side, 3)) - 3.0],
+                               axis=-1).astype(np.float32)
+    x, p, g, loc, logscale, p_eval, summed, head_eval = (
+        torch.from_numpy(a).to(device)
+        for a in (x, p, g, loc, logscale, p_eval, summed, head_eval))
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -91,6 +98,14 @@ def outputs(device: str = "cuda", k: int = K, batch: int = BATCH, side: int = SI
     d_loc, d_ls = dl_kernel.dl_backward(x, loc, logscale, g.expand(loc.shape), *bin_)
     out["dl_log_prob_backward float32 d_loc"] = d_loc
     out["dl_log_prob_backward float32 d_logscale"] = d_ls
+    # the halves of one dense channel-minor head, as model03's head hands them on
+    head_loc, head_ls = torch.chunk(torch.cat([loc, logscale], dim=-1), 2, dim=-1)
+    out["dl_log_prob float32 head halves"] = dl_kernel.dl_log_prob(x, head_loc, head_ls, *bin_)
+    d_loc, d_ls = dl_kernel.dl_backward(x, head_loc, head_ls, g.expand(head_loc.shape), *bin_)
+    out["dl_log_prob_backward float32 head halves d_loc"] = d_loc
+    out["dl_log_prob_backward float32 head halves d_logscale"] = d_ls
+    out[f"dl_log_prob k={k_eval} float32 head halves"] = dl_kernel.dl_log_prob(
+        x[:batch_eval], *torch.chunk(head_eval, 2, dim=-1), *bin_)
     out["channel_sum channel_first"] = io_probe.channel_sum(summed, "channel_first")
     return {name: t.cpu() for name, t in out.items()}
 

@@ -61,9 +61,10 @@ def launch_counts() -> Dict[str, int]:
 def reset_counts() -> None:
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches = kernels.backward_launches = 0
-    for kernels in (mdl_kernel, mdl_null):
-        kernels.backward_launches_by_path.update(dict.fromkeys(mdl_kernel.PATHS, 0))
-    mdl_kernel.launches_by_path.update(dict.fromkeys(mdl_kernel.PATHS, 0))
+    for kernels in (mdl_kernel, mdl_null, dl_kernel):
+        kernels.backward_launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
+    for kernels in (mdl_kernel, dl_kernel):
+        kernels.launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
 
 
 def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> dict:
@@ -81,9 +82,11 @@ def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> 
             "likelihood_ms": likelihood, "rest_ms": r["busy_ms"] - likelihood,
             "by_class": r["by_class"], "traced_wall_ms": r["traced_wall_ms"],
             "launches": launch_counts(),
-            "forward_paths": {"mdl_log_prob": dict(mdl_kernel.launches_by_path)},
+            "forward_paths": {"mdl_log_prob": dict(mdl_kernel.launches_by_path),
+                              "dl_log_prob": dict(dl_kernel.launches_by_path)},
             "backward_paths": {"mdl_log_prob_backward": dict(mdl_kernel.backward_launches_by_path),
-                               "mdl_null_backward": dict(mdl_null.backward_launches_by_path)}}
+                               "mdl_null_backward": dict(mdl_null.backward_launches_by_path),
+                               "dl_log_prob_backward": dict(dl_kernel.backward_launches_by_path)}}
 
 
 def decomposition(results: Dict[str, dict], key: str) -> Dict[str, float]:
