@@ -81,16 +81,19 @@ and nothing falls back to a plain version.
 7. the memory-path probes at full size: the channel sum (P1, P2) of a
    ``[100, 102400, 50]`` and a ``[100, 50, 102400]`` float32 tensor (2.05 GB
    each) through the direct and the staged path against ``sum`` (tolerance
-   stated at ``SUM_ATOL``; timed in phase 10c; P2 on its vec4 kernel, equal
-   bit for bit to the strided kernel and timed in turns with it), and the
-   null-body MoDL kernels (P3), forward and
-   backward, direct and staged, at the model05 train shape (k = 5) and
-   eval-chunk shape (k = 100), f32 and bf16, both layouts, against their
-   plain versions (the sums within tolerance, ``0.5 p + g`` exactly); the
-   staged backward takes the MoDL backward's tile path on NHWC and its
-   direct path on NCHW, and the two variants' backward times are taken in
-   turns (dma, staged, staged, dma); the ragged and the misaligned case as
-   in phase 5;
+   stated at ``SUM_ATOL``; timed in phase 10c), every kernel equal bit for
+   bit to the strided kernel: P1 staged on the read walk of
+   ``csrc/mdl_tile.cuh``, P2 on its vec4 kernel (timed in turns with the
+   strided one); P1 staged refuses a sliced, a misaligned and a 300-channel
+   view before any launch; and the null-body MoDL kernels (P3), forward and backward, direct
+   (``dma``) and staged, at the model05 train shape (k = 5) and eval-chunk
+   shape (k = 100), f32 and bf16, both layouts, against their plain
+   versions (the sums within tolerance and the staged forward equal to the
+   dma one bit for bit, ``0.5 p + g`` exactly); the staged pair takes the
+   MoDL kernels' tile paths on NHWC and their direct paths on NCHW, and each
+   direction's two variants are timed in turns (dma, staged, staged, dma;
+   the forward also on the device); the ragged and the misaligned case as
+   in phase 5, forward and backward;
 8. model05 and model03, float32 config, batch 128, k = 5: the IWAE bound
    through the kernel (``use_pallas=None``) and through the plain version
    (``use_pallas=False``) on the same weights and noise;
@@ -118,12 +121,12 @@ and nothing falls back to a plain version.
    kernel) the DL kernels' tile path; (c) the
    rest of the measurement path on model05, batch 128, k = 5, f32, through
    ``utils/timing.py``: ``probes.kernel_structure`` (the four-way step:
-   the null kernels must launch in ``dma`` (backward on the direct path) and
-   ``staged`` (on the tile path), the DL pair in ``dl_head`` (on its tile
-   path), the MoDL pair
-   in ``full`` (backward on the tile path), and no other) and
-   ``probes.kernel_isolate`` / ``kernel_isolate2`` (every channel-first
-   launch on the vec4 kernel);
+   the null kernels must launch in ``dma`` (both on the direct path) and
+   ``staged`` (both on the tile path), the DL pair in ``dl_head`` (on its
+   tile path), the MoDL pair in ``full`` (both on the tile path), and no
+   other) and ``probes.kernel_isolate`` / ``kernel_isolate2`` (every
+   channel-first launch on the vec4 kernel, every staged one on the read
+   walk);
 11. a ``torch.profiler`` breakdown of device time by kernel class over 5
    train steps of each config of model05 and model03, with each kernel's
    device time per launch.
@@ -155,10 +158,12 @@ sizes its grid); the MoDL forward and the DL pair also ``device_ms`` and
 model's own head output (model05's at k = 100 for the MoDL forward,
 model03's at k = 100 for the DL forward and k = 5 for its backward:
 ``model_head_device_ms``, ``model_head_device_ms_direct``, with the DL
-pair's ``model_head_bound_ms``); the DL pair's
-``launches_by_memory_path`` splits its main-path launches by memory path;
-P2 carries ``ms_strided``, its strided
-kernel timed in turns with the vec4 one. The MoDL backward's
+pair's ``model_head_bound_ms``); the DL and null pairs'
+``launches_by_memory_path`` splits their main-path launches by memory path;
+P2 carries ``ms_strided``, its strided kernel timed in turns with the vec4
+one; P1 staged ``tile_pixels`` and ``blocks_per_sm``; the null forwards
+``device_ms``, the staged one also ``device_ms_direct`` (its dma
+variant's, in turns). The MoDL backward's
 ``max_abs_err`` is over its float32 contract; ``max_abs_err_bf16`` (one bf16
 ulp of gradients of a few hundred) is over the bf16 ones, and
 ``tolerance_excess``, the largest |kernel - plain| less its per-element
@@ -1174,38 +1179,60 @@ def phase_io_probes():
         params = kernel_isolate.probe_params(layout)
         want = io_probe.channel_sum_plain(params, layout)
         bound_ms, bound_by, _ = bound(distinct_bytes(params, want), params.numel())
-        paths = [("direct", 256)] + ([("staged", tile) for tile in kernel_isolate.TILES]
-                                     if layout == "channel_minor" else [])
-        for path, tile in paths:
-            got = io_probe.channel_sum(params, layout, path, tile)
+        # the strided kernel, which every other kernel's bits must equal
+        strided = io_probe.channel_sum(params, layout, kernel="strided")
+        paths = ("direct", "staged") if layout == "channel_minor" else ("direct",)
+        for path in paths:
+            got = io_probe.channel_sum(params, layout, path)
             torch.cuda.synchronize()
             if got.shape != want.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"channel_sum {layout} {path}: shape {tuple(got.shape)}")
             err = float((got - want).abs().max())
             which = "P1" if layout == "channel_minor" else "P2"
-            name = f"{which} {layout} {path}" + (f" tile={tile}" if path == "staged" else "")
-            kernel = "staged" if path == "staged" else io_probe.direct_kernel(params, layout)
+            name = f"{which} {layout} {path}"
+            kernel = "tiled" if path == "staged" else io_probe.direct_kernel(params, layout)
+            if not torch.equal(got, strided):
+                raise AssertionError(f"{name}: the {kernel} kernel's bits differ from the "
+                                     f"strided kernel's")
             more = {}
             if layout == "channel_first":  # the strided kernel it replaced, in turns
-                strided = io_probe.channel_sum(params, layout, kernel="strided")
-                if kernel != "vec4" or not torch.equal(got, strided):
-                    raise AssertionError(f"{name}: the {kernel} kernel's bits differ from the "
-                                         f"strided kernel's")
-                del strided
-                more = dict(kernel=kernel, ms_strided=in_turns(
+                more = dict(ms_strided=in_turns(
                     {"vec4": lambda: io_probe.channel_sum(params, layout),
                      "strided": lambda: io_probe.channel_sum(params, layout, kernel="strided")},
                     ("strided", "vec4", "vec4", "strided"), 5)["strided"])
+            elif path == "staged":
+                more = dict(blocks_per_sm=io_probe.tile_blocks_per_sm(kernel_isolate.CH),
+                            tile_pixels=io_probe.SUM_TILE)
             say(f"kernel {name} K={kernel_isolate.K} P={kernel_isolate.P} C={kernel_isolate.CH} "
                 f"({kernel} kernel): max|d|={err:.3e} (atol {SUM_ATOL}), bound {bound_ms:.4f} ms "
-                f"({bound_by})" + (f"; equal to the strided kernel bit for bit, which takes "
-                                   f"{more['ms_strided']:.4f} ms" if more else ""))
+                f"({bound_by}); equal to the strided kernel bit for bit" +
+                (f", which takes {more['ms_strided']:.4f} ms" if "ms_strided" in more else "") +
+                (f"; tiles of {io_probe.SUM_TILE} pixels, {more['blocks_per_sm']} blocks an SM"
+                 if "blocks_per_sm" in more else ""))
             if err > SUM_ATOL:
                 raise AssertionError(f"{name}: kernel and plain version differ beyond tolerance")
             records[name] = dict(max_abs_err=err, shape=name, bound_ms=bound_ms,
-                                 bound_by=bound_by, **more)
-        del params, want, got
+                                 bound_by=bound_by, kernel=kernel, **more)
+        del params, want, got, strided
     torch.cuda.empty_cache()
+
+    # P1 staged off its layout: refused before any launch, never sent elsewhere
+    whole = torch.randn((3, 1000, 60), device="cuda")
+    views = (("sliced", whole[..., :50]), ("misaligned", misaligned_copy(whole[..., :50])),
+             ("300-channel", torch.randn((3, 1000, 300), device="cuda")))
+    for what, view in views:
+        before = io_probe.launches
+        try:
+            io_probe.channel_sum(view, path="staged")
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"P1 staged took a {what} view")
+        if io_probe.launches != before:
+            raise AssertionError(f"P1 staged launched on a {what} view")
+    say("kernel P1 staged refuses a sliced, a misaligned and a 300-channel view (its tile "
+        "would not fit shared memory) before any launch")
+    del whole, views
 
     # P3: the MoDL kernels' train (k = 5) and eval-chunk (k = 100) shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -1223,51 +1250,72 @@ def phase_io_probes():
                 fwd_want = mdl_null.mdl_null_forward_plain(x, p)
                 bwd_want = mdl_null.mdl_null_backward_plain(x, p, g)
                 layout = "nchw" if nchw else "nhwc"
-                # the staged backward has the MoDL backward's dispatch
+                # the staged variant has the MoDL kernels' dispatch
                 paths = {"dma": "direct", "staged": "direct" if nchw else "tiled"}
-                # the two variants' backwards in turns, in one stretch
+                # each direction's two variants in turns, in one stretch
+                order = ("dma", "staged", "staged", "dma")
+                fwd_ms = in_turns(
+                    {variant: (lambda v=variant: mdl_null.mdl_null_forward(x, p, v))
+                     for variant in mdl_null.VARIANTS}, order, 10)
+                fwd_device = in_turns(
+                    {variant: (lambda v=variant: mdl_null.mdl_null_forward(x, p, v))
+                     for variant in mdl_null.VARIANTS}, order, 10, graph_ms)
                 bwd_ms = in_turns(
                     {variant: (lambda v=variant: mdl_null.mdl_null_backward(x, p, g, v))
-                     for variant in mdl_null.VARIANTS}, ("dma", "staged", "staged", "dma"), 10)
+                     for variant in mdl_null.VARIANTS}, order, 10)
+                fwd = {}
                 for variant in mdl_null.VARIANTS:
                     tag = f"{variant} {dtype_name(dtype)} k={k} B={BATCH} {layout}"
-                    before = dict(mdl_null.backward_launches_by_path)
-                    fwd = mdl_null.mdl_null_forward(x, p, variant)
+                    before = (dict(mdl_null.launches_by_path),
+                              dict(mdl_null.backward_launches_by_path))
+                    fwd[variant] = mdl_null.mdl_null_forward(x, p, variant)
                     bwd = mdl_null.mdl_null_backward(x, p, g, variant)
                     torch.cuda.synchronize()
                     path = paths[variant]
-                    if mdl_null.backward_launches_by_path[path] != before[path] + 1:
+                    if mdl_null.forward_path(p, variant) != path \
+                            or mdl_null.launches_by_path[path] != before[0][path] + 1:
+                        raise AssertionError(f"P3 forward {tag}: no {path} launch counted")
+                    if mdl_null.backward_launches_by_path[path] != before[1][path] + 1:
                         raise AssertionError(f"P3 backward {tag}: no {path} launch counted")
-                    err = float((fwd - fwd_want).abs().max())
-                    if fwd.shape != fwd_want.shape or err > SUM_ATOL:
+                    err = float((fwd[variant] - fwd_want).abs().max())
+                    if fwd[variant].shape != fwd_want.shape or err > SUM_ATOL:
                         raise AssertionError(f"P3 forward {tag}: max|d|={err:.3e}")
+                    if not torch.equal(fwd[variant], fwd["dma"]):
+                        raise AssertionError(f"P3 forward {tag}: not the dma variant's bits")
                     if bwd.dtype != p.dtype or bwd.stride() != p.stride() \
                             or not torch.equal(bwd, bwd_want):
                         raise AssertionError(f"P3 backward {tag}: not equal to 0.5 p + g")
-                    fwd_ms = cuda_ms(lambda: mdl_null.mdl_null_forward(x, p, variant), 10)
                     fwd_plain = cuda_ms(lambda: mdl_null.mdl_null_forward_plain(x, p), 3)
                     bwd_plain = cuda_ms(lambda: mdl_null.mdl_null_backward_plain(x, p, g), 3)
-                    fb, fby, _ = bound(distinct_bytes(x, p, fwd), fwd.numel() * (10 * N_MIX + 3))
+                    fb, fby, _ = bound(distinct_bytes(x, p, fwd[variant]),
+                                       fwd[variant].numel() * (10 * N_MIX + 3))
                     bb, bby, _ = bound(distinct_bytes(x, p, g, bwd), 2 * p.numel())
-                    blocks = mdl_null.tile_blocks_per_sm(dtype, N_MIX) if path == "tiled" else None
-                    at_blocks = f", {blocks} blocks an SM" if blocks else ""
+                    tiled = path == "tiled"
+                    fwd_blocks = mdl_null.tile_blocks_per_sm(dtype, N_MIX, forward=True) \
+                        if tiled else None
+                    blocks = mdl_null.tile_blocks_per_sm(dtype, N_MIX) if tiled else None
                     library_ms = None
                     if dtype == torch.float32:  # one call, the same function
                         library_ms = cuda_ms(lambda: torch.add(g, p, alpha=0.5), 5)
-                    say(f"kernel P3 {tag}: forward max|d|={err:.3e} (atol {SUM_ATOL}), "
-                        f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound {fb:.4f} ms ({fby}); "
-                        f"backward ({path} path{at_blocks}) equal, {bwd_ms[variant]:.4f} ms (dma, staged, "
-                        f"staged, dma in turns), plain {bwd_plain:.4f} ms, library "
+                    say(f"kernel P3 {tag} ({path} path"
+                        + (f", {fwd_blocks} / {blocks} blocks an SM" if tiled else "")
+                        + f"): forward max|d|={err:.3e} (atol {SUM_ATOL}), the dma variant's "
+                        f"bits, {fwd_ms[variant]:.4f} ms, device {fwd_device[variant]:.4f} ms "
+                        f"(dma, staged, staged, dma in turns), plain {fwd_plain:.4f} ms, "
+                        f"bound {fb:.4f} ms ({fby}); backward equal, {bwd_ms[variant]:.4f} ms "
+                        f"(in turns), plain {bwd_plain:.4f} ms, library "
                         f"{'%.4f ms' % library_ms if library_ms else 'none'}, bound {bb:.4f} ms "
                         f"({bby})")
                     records[f"P3 forward {tag}"] = dict(
-                        max_abs_err=err, shape=f"P3 forward {tag}", ms=fwd_ms, plain_ms=fwd_plain,
+                        max_abs_err=err, shape=f"P3 forward {tag}", path=path,
+                        ms=fwd_ms[variant], device_ms=fwd_device[variant], plain_ms=fwd_plain,
                         bound_ms=fb, bound_by=fby, library_ms=None)
                     records[f"P3 backward {tag}"] = dict(
                         max_abs_err=0.0, shape=f"P3 backward {tag}", path=path,
                         ms=bwd_ms[variant], plain_ms=bwd_plain, bound_ms=bb, bound_by=bby,
                         library_ms=library_ms)
-                    if path == "tiled":
+                    if tiled:
+                        records[f"P3 forward {tag}"].update(blocks_per_sm=fwd_blocks)
                         records[f"P3 backward {tag}"].update(blocks_per_sm=blocks)
                 del x, p, g, fwd, bwd, fwd_want, bwd_want
         torch.cuda.empty_cache()
@@ -1280,15 +1328,28 @@ def phase_io_probes():
         g = torch.randn((3, 7, 31, 31, 1), generator=gen, device="cuda")
         for what, params, path in (("ragged", p, "tiled"),
                                    ("misaligned", misaligned_copy(p), "direct")):
-            before = dict(mdl_null.backward_launches_by_path)
+            before = (dict(mdl_null.launches_by_path), dict(mdl_null.backward_launches_by_path))
+            fwd = mdl_null.mdl_null_forward(x, params, "staged")
             bwd = mdl_null.mdl_null_backward(x, params, g, "staged")
             torch.cuda.synchronize()
-            if mdl_null.backward_launches_by_path[path] != before[path] + 1:
+            if mdl_null.launches_by_path[path] != before[0][path] + 1:
+                raise AssertionError(f"P3 forward {what}: staged did not take the {path} path")
+            if mdl_null.backward_launches_by_path[path] != before[1][path] + 1:
                 raise AssertionError(f"P3 backward {what}: staged did not take the {path} path")
+            if not torch.equal(fwd, mdl_null.mdl_null_forward(x, params, "dma")):
+                raise AssertionError(f"P3 forward {what} {dtype_name(dtype)}: not the dma bits")
             if not torch.equal(bwd, mdl_null.mdl_null_backward_plain(x, params, g)):
                 raise AssertionError(f"P3 backward {what} {dtype_name(dtype)}: not 0.5 p + g")
-            say(f"kernel P3 backward staged {what} {dtype_name(dtype)} k=3 B=7 31x31 "
-                f"({g.numel()} pixels), {path} path: equal to 0.5 p + g")
+            if path == "direct":  # the C entry point asked for the tile path refuses it
+                err = io_probe.library().mdl_null_forward(
+                    x.data_ptr(), params.data_ptr(), fwd.data_ptr(), int(dtype == torch.bfloat16),
+                    N_MIX, 1, *params.shape[:4], *x.stride(), *params.stride(),
+                    torch.cuda.current_stream().cuda_stream)
+                if err != 1:  # cudaErrorInvalidValue
+                    raise AssertionError(f"P3 forward {what}: the tile path returned {err}")
+            say(f"kernel P3 staged {what} {dtype_name(dtype)} k=3 B=7 31x31 "
+                f"({g.numel()} pixels), {path} path: forward the dma variant's bits, "
+                f"backward equal to 0.5 p + g")
     return records
 
 
@@ -1396,6 +1457,16 @@ def structure_path(smi: str):
     _took(paths["full"]["mdl_log_prob_backward"], "tiled", "the full step's MoDL backward")
     _took(paths["staged"]["mdl_null_backward"], "tiled", "the staged step's null backward")
     _took(paths["dma"]["mdl_null_backward"], "direct", "the dma step's null backward")
+    _took(structure["steps"]["staged"]["forward_paths"]["mdl_null_forward"], "tiled",
+          "the staged step's null forward")
+    _took(structure["steps"]["dma"]["forward_paths"]["mdl_null_forward"], "direct",
+          "the dma step's null forward")
+    for label in ("dma", "staged"):  # the null pair's launches by memory path
+        step = structure["steps"][label]
+        for kernel, counts in (("mdl_null_forward", step["forward_paths"]["mdl_null_forward"]),
+                               ("mdl_null_backward", paths[label]["mdl_null_backward"])):
+            by_path[f"kernel_structure {label}"].update(
+                {f"{kernel} {p}": n for p, n in counts.items()})
     dl_head = structure["steps"]["dl_head"]
     _took(dl_head["forward_paths"]["dl_log_prob"], "tiled", "the dl_head step's DL forward")
     _took(paths["dl_head"]["dl_log_prob_backward"], "tiled", "the dl_head step's DL backward")
@@ -1404,7 +1475,9 @@ def structure_path(smi: str):
     by_path["kernel_structure dl_head"].update(
         {f"dl_log_prob_backward {p}": n
          for p, n in paths["dl_head"]["dl_log_prob_backward"].items()})
-    say(f"kernel_structure backward launches by memory path: {paths}")
+    say(f"kernel_structure launches by memory path: forward "
+        f"{ {label: structure['steps'][label]['forward_paths'] for label in wanted} }, "
+        f"backward {paths}")
     if mdl_kernel.mdl_log_prob.__module__ != mdl_kernel.__name__:
         raise AssertionError("the MoDL likelihood was not put back after the probe")
 
@@ -1415,12 +1488,13 @@ def structure_path(smi: str):
     say(f"kernel_isolate main path: kernel launches {counts}")
     _only(counts, ("channel_sum", "channel_sum channel_minor direct",
                    "channel_sum channel_minor staged", "channel_sum channel_first direct",
-                   "channel_sum kernel strided", "channel_sum kernel staged",
+                   "channel_sum kernel strided", "channel_sum kernel tiled",
                    "channel_sum kernel vec4"), "the memory-path probes")
     # every channel-first launch took the vec4 kernel, every channel-minor
-    # direct one the strided kernel
+    # direct one the strided kernel, every staged one the read walk
     if (counts["channel_sum kernel vec4"] != counts["channel_sum channel_first direct"]
-            or counts["channel_sum kernel strided"] != counts["channel_sum channel_minor direct"]):
+            or counts["channel_sum kernel strided"] != counts["channel_sum channel_minor direct"]
+            or counts["channel_sum kernel tiled"] != counts["channel_sum channel_minor staged"]):
         raise AssertionError(f"the channel sums took other kernels: {counts}")
     return by_path, times
 
@@ -1774,8 +1848,13 @@ def main() -> None:
         kernel = f"mdl_null_{direction}[{variant}]"
         more = {}
         if case.get("path") == "tiled":  # the direct variant on the same operands, in turns
-            more = dict(
-                ms_direct=io_cases[f"P3 backward dma float32 k=5 B={BATCH} {modl}"]["ms"])
+            dma = io_cases[f"P3 {direction} dma float32 k=5 B={BATCH} {modl}"]
+            more = dict(ms_direct=dma["ms"])
+            if "device_ms" in dma:
+                more.update(device_ms_direct=dma["device_ms"])
+        counts = by_path[f"kernel_structure {variant}"]
+        more.update(launches_by_memory_path={
+            path: counts[f"mdl_null_{direction} {path}"] for path in mdl_null.PATHS})
         return record(kernel, IO_SOURCE, REPLACES_P3, case["max_abs_err"], case,
                       counter=f"mdl_null_{direction}", paths=(f"kernel_structure {variant}",),
                       **more)
@@ -1814,7 +1893,7 @@ def main() -> None:
         sum_record("channel_sum[channel_minor,direct]", REPLACES_P1, "P1 channel_minor direct",
                    "direct", "library sum(-1)"),
         sum_record("channel_sum[channel_minor,staged]", REPLACES_P1,
-                   "P1 channel_minor staged tile=256", "staged tile=256", "library sum(-1)"),
+                   "P1 channel_minor staged", "staged", "library sum(-1)"),
         sum_record("channel_sum[channel_first,direct]", REPLACES_P2, "P2 channel_first direct",
                    "channel-first direct", "library sum(1)"),
         null_record("forward", "dma"), null_record("forward", "staged"),

@@ -15,8 +15,8 @@ functions, sums in another order): forward per pixel |kernel - plain| <=
 float32 gradient and 2e-5 + 8e-3 |plain| for a bf16 one (one bf16 ulp is
 2^-8 of the value). The two memory paths of each MoDL kernel run one body,
 the same float32 operations in the same order, and are held to each other
-exactly; so are the channel sum's two direct kernels, which add each pixel's
-channels in one order. The
+exactly; so are the channel sum's three kernels and the null forward's two
+variants, which add each pixel's channels in one order. The
 discretized-logistic kernels run the plain
 version's float32 operations one for one, without fused multiply-adds (on
 the H100 they agreed bit for bit); they are held to the same forward and
@@ -709,26 +709,75 @@ def test_measure_rates_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("shape", [(3, 1000, 50), (1, 255, 7), (2, 513, 100)])
-@pytest.mark.parametrize("layout,path,tile", [
-    ("channel_minor", "direct", 256), ("channel_minor", "staged", 32),
-    ("channel_minor", "staged", 256), ("channel_minor", "staged", 1024),
-    ("channel_first", "direct", 256)])
-def test_channel_sum_matches_plain_version(cuda, shape, layout, path, tile):
+@pytest.mark.parametrize("layout,path", [
+    ("channel_minor", "direct"), ("channel_minor", "staged"), ("channel_first", "direct")])
+def test_channel_sum_matches_plain_version(cuda, shape, layout, path):
     rng = np.random.default_rng(shape[1])
     params = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
     if layout == "channel_first":
         params = params.transpose(1, 2).contiguous()
     before = io_probe.launches
-    if path == "staged" and tile * (shape[2] | 1) * 4 > io_probe.MAX_SHARED_BYTES:
-        with pytest.raises(ValueError, match="shared memory"):  # 1024 rows of 100 channels
-            io_probe.channel_sum(params, layout, path, tile)
-        assert io_probe.launches == before
-        return
-    got = io_probe.channel_sum(params, layout, path, tile)
+    got = io_probe.channel_sum(params, layout, path)
     assert io_probe.launches == before + 1
     want = io_probe.channel_sum_plain(params, layout)
     assert got.shape == want.shape == shape[:2] and got.is_contiguous()
     assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(3, 1000, 50), (1, 255, 7), (2, 513, 100)])
+def test_channel_sum_staged_is_the_strided_kernels_bits(cuda, shape):
+    """The read walk adds each pixel's channels in the strided kernel's
+    order, at ragged pixel counts (255, 513 and 3000 pixels against tiles of
+    ``io_probe.SUM_TILE``) and 7 to 100 channels."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    params = torch.randn(shape, generator=gen, device=cuda)
+    before = dict(io_probe.launches_by_kernel)
+    staged = io_probe.channel_sum(params, path="staged")
+    strided = io_probe.channel_sum(params, kernel="strided")
+    assert io_probe.launches_by_kernel == {**before, "tiled": before["tiled"] + 1,
+                                           "strided": before["strided"] + 1}
+    assert torch.equal(staged, strided)
+    assert (staged - params.sum(-1)).abs().max() <= 1e-4
+    assert 1 <= io_probe.tile_blocks_per_sm(shape[2]) <= 16
+
+
+def test_channel_sum_staged_refuses_a_sliced_or_misaligned_view(cuda):
+    """Refused in Python before any launch, and by the C entry point itself."""
+    whole = torch.randn((3, 1000, 60), device=cuda)
+    flat = torch.empty(3 * 1000 * 50 + 16, device=cuda)
+    lead = (-flat.data_ptr() % 16) // 4 + 1
+    misaligned = flat[lead:lead + 3 * 1000 * 50].view(3, 1000, 50)
+    out = torch.empty((3, 1000), device=cuda)
+    for view in (whole[..., :50], misaligned):
+        before = io_probe.launches
+        with pytest.raises(ValueError, match="staged path takes"):
+            io_probe.channel_sum(view, path="staged")
+        assert io_probe.launches == before
+        err = io_probe.library().channel_sum(  # kernel 1, the read walk
+            view.data_ptr(), out.data_ptr(), 1, 3, 1000, 50, *view.stride(),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 1  # cudaErrorInvalidValue
+
+
+def test_channel_sum_staged_and_its_entry_point_agree_on_the_widest_row(cuda):
+    """Python and the C entry point refuse the same rows: the widest that
+    fits the walk's tile in shared memory runs and gives the strided bits,
+    one of 300 channels is refused by both."""
+    widest = io_probe.SUM_MAX_CHANNELS
+    params = torch.randn((2, 513, widest), device=cuda)
+    assert torch.equal(io_probe.channel_sum(params, path="staged"),
+                       io_probe.channel_sum(params, kernel="strided"))
+    wide = torch.randn((2, 513, 300), device=cuda)
+    out = torch.empty((2, 513), device=cuda)
+    before = io_probe.launches
+    with pytest.raises(ValueError, match="staged path takes"):
+        io_probe.channel_sum(wide, path="staged")
+    assert io_probe.launches == before
+    for t in (torch.randn((2, 513, widest + 1), device=cuda), wide):
+        err = io_probe.library().channel_sum(  # kernel 1, the read walk
+            t.data_ptr(), out.data_ptr(), 1, *t.shape, *t.stride(),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("shape", [(3, 50, 1024), (100, 50, 102400), (2, 7, 4096)])
@@ -765,8 +814,6 @@ def test_channel_sum_direct_reads_through_any_strides(cuda):
     assert (got - view.sum(-1)).abs().max() <= 1e-4
     with pytest.raises(ValueError, match="staged"):
         io_probe.channel_sum(view, "channel_minor", "staged")
-    with pytest.raises(ValueError, match="tile"):
-        io_probe.channel_sum(whole, "channel_minor", "staged", tile=48)
 
 
 @pytest.mark.parametrize("n_mix", [1, 5, 10])
@@ -790,6 +837,49 @@ def test_null_kernels_match_plain_versions(cuda, variant, nchw, dtype, n_mix):
         assert (fwd - want).abs().max() <= 1e-4
         assert bwd.dtype == dtype and bwd.stride() == p.stride()
         assert torch.equal(bwd, mdl_null.mdl_null_backward_plain(x, p, g))
+
+
+@pytest.mark.parametrize("n_mix", [1, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nchw", [False, True])
+def test_null_forward_staged_is_the_dma_variants_bits(cuda, nchw, dtype, n_mix):
+    """The staged null forward takes the path ``mdl_kernel.forward_path``
+    names (the read walk on NHWC, direct on NCHW), counted by path, and adds
+    each pixel's channels in the direct kernel's order: at k = 3 (210
+    pixels) and the ragged k = 11 (770) equal to ``dma`` bit for bit."""
+    for k in (3, 11):
+        x, p = _inputs(cuda, k=k, n_mix=n_mix, dtype=dtype)
+        if nchw:
+            p = _nchw(p)
+        path = mdl_kernel.forward_path(p)
+        assert path == ("direct" if nchw else "tiled") == mdl_null.forward_path(p, "staged")
+        before = dict(mdl_null.launches_by_path)
+        staged = mdl_null.mdl_null_forward(x, p, "staged")
+        dma = mdl_null.mdl_null_forward(x, p, "dma")
+        want = dict(before)
+        want[path] += 1
+        want["direct"] += 1
+        assert mdl_null.launches_by_path == want
+        assert torch.equal(staged, dma)
+        assert (staged - mdl_null.mdl_null_forward_plain(x, p)).abs().max() <= 1e-4
+    assert 1 <= mdl_null.tile_blocks_per_sm(dtype, n_mix, forward=True) <= 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_null_forward_tile_path_refuses_a_misaligned_view(cuda, dtype):
+    x, p = _inputs(cuda, dtype=dtype)
+    flat = torch.empty(p.numel() + 16, device=cuda, dtype=dtype)
+    lead = (-flat.data_ptr() % 16) // flat.element_size() + 1
+    view = flat[lead:lead + p.numel()].view(p.shape)
+    view.copy_(p)
+    assert mdl_null.forward_path(view, "staged") == "direct"
+    assert torch.equal(mdl_null.mdl_null_forward(x, view, "staged"),
+                       mdl_null.mdl_null_forward(x, p, "staged"))
+    out = torch.empty(p.shape[:4], device=cuda)
+    err = io_probe.library().mdl_null_forward(  # asked for the tile path
+        x.data_ptr(), view.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16), 5, 1,
+        *p.shape[:4], *x.stride(), *view.stride(), torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("variant", mdl_null.VARIANTS)

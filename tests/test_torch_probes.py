@@ -326,7 +326,10 @@ def test_the_harness_defaults_to_the_card():
 def test_kernel_classes():
     assert timing.kernel_class("void (anonymous namespace)::mdl_log_prob_backward_kernel<float, 5>"
                                ) == "MoDL backward"
-    assert timing.kernel_class("mdl_null_forward_staged_kernel<float>") == "null forward"
+    assert timing.kernel_class("mdl_null_forward_tiled_kernel<float>") == "null forward"
+    assert timing.kernel_class("mdl_null_forward_kernel<__nv_bfloat16>") == "null forward"
+    assert timing.kernel_class("(anonymous namespace)::channel_sum_tiled_kernel("
+                               "mdlt::ReadOperands<float>)") == "channel sum"
     assert timing.kernel_class("sm90_xmma_fprop_implicit_gemm") == "conv/gemm"
     assert timing.kernel_class("multi_tensor_apply_kernel") == "optimizer"
     assert timing.kernel_class("vectorized_elementwise_kernel") == "elementwise"

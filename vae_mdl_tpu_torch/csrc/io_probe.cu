@@ -23,30 +23,28 @@
 // transposed in fast memory; the block sizes they sweep are that memory's
 // tiling. Here the bodies are memory paths:
 // - direct: a thread walks its pixel's channels straight from device memory
-//   through the channel stride, as the MoDL forward and the MoDL backward's
-//   direct path do. On a channel-minor layout neighbouring threads are C
-//   elements apart (uncoalesced: the caches save a read as far as they
-//   reach, a write they do not, so the direct null backward is slow there by
-//   construction; it is the control whose distance from the staged one is
-//   the staging term); on a channel-first layout they are neighbours
-//   (coalesced);
-// - staged, channel sum and null forward: a block's tile of pixels goes
-//   through shared memory. Threads load it in the order the memory lies
-//   (coalesced in either layout), each pixel's row padded to an odd length so
-//   that a thread reading its own row meets no bank conflict, and a thread
-//   then sums its row there;
-// - staged, null backward: the MoDL backward's own memory path and dispatch.
-//   Dense channel-minor operands on 16-byte aligned addresses take the tile
-//   path of mdl_tile.cuh (persistent blocks, the tile in by a bulk
-//   asynchronous copy on an mbarrier, the result written over it in shared
-//   memory and out by one bulk store), with the null body
-//   in place of the gradient math; any other layout takes the direct path,
-//   as the MoDL backward does. The header is shared, so the twin cannot
-//   drift from the kernel it mirrors.
+//   through the channel stride, as the MoDL kernels' direct paths do. On a
+//   channel-minor layout neighbouring threads are C elements apart
+//   (uncoalesced: the caches save a read as far as they reach, a write they
+//   do not, so the direct null backward is slow there by construction; it is
+//   the control whose distance from the staged one is the staging term); on
+//   a channel-first layout they are neighbours (coalesced);
+// - staged: the shipped kernels' own memory path and dispatch, the read walk
+//   of mdl_tile.cuh for the channel sum and the null forward (persistent
+//   blocks, the tile in by a bulk asynchronous copy on an mbarrier, a thread
+//   summing its row there), for_each_tile for the null backward (the result
+//   written over the tile and out by one bulk store). The null kernels take
+//   it for dense channel-minor operands on 16-byte aligned addresses and the
+//   direct path for any other layout, as the MoDL kernels do; the channel sum
+//   takes only the contiguous channel-minor layout on a 16-byte aligned base,
+//   kSumPixels pixels a thread, and reads no image. The header is shared, so
+//   a twin cannot drift from the kernel it mirrors, and the sum measures the
+//   read walk's own rate with no math.
 // The null kernels off the tile path take the MoDL kernels' grid (one thread
 // per pixel, 256 a block); x is read in all of them, in the backward through
 // a predicate that is never true for x in [0, 1], so the read stays and the
-// result is exact.
+// result is exact. Every sum adds a pixel's channels in order, c = 0 .. C-1,
+// on every path, so the paths give the same bits.
 //
 // Each C entry point returns cudaGetLastError() after the launch.
 
@@ -61,9 +59,7 @@ using dlc::store;
 using mdla::kThreads;
 
 constexpr int kMaxMix = 10;
-
-// A pixel's row in shared memory: C values, padded to an odd length.
-__host__ __device__ __forceinline__ int padded(int C) { return C | 1; }
+constexpr size_t kMaxSharedBytes = 232448;  // a block's dynamic shared memory on Hopper
 
 // -- channel sum --------------------------------------------------------------
 
@@ -120,28 +116,28 @@ __global__ void channel_sum_vec4_kernel(const float* __restrict__ p, float* __re
     reinterpret_cast<float4*>(out)[base + lane + 32 * g] = acc[g];
 }
 
-// Contiguous channel-minor [rows, C]: a block stages blockDim.x rows.
-__global__ void channel_sum_staged_kernel(const float* __restrict__ p, float* __restrict__ out,
-                                          int64_t rows, int C) {
-  extern __shared__ float tile[];
-  const int CP = padded(C);
-  const int T = blockDim.x;
-  for (int64_t row0 = blockIdx.x * (int64_t)T; row0 < rows; row0 += (int64_t)gridDim.x * T) {
-    const int n = static_cast<int>(rows - row0 < T ? rows - row0 : T);
-    const float* src = p + row0 * C;
-    for (int e = threadIdx.x; e < n * C; e += T) {
-      const int r = e / C;
-      tile[r * CP + (e - r * C)] = src[e];
-    }
-    __syncthreads();
-    if (threadIdx.x < n) {
-      const float* row = tile + threadIdx.x * CP;
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c) acc += row[c];
-      out[row0 + threadIdx.x] = acc;
-    }
-    __syncthreads();
+// Contiguous channel-minor [K * P, C] on the read walk: a thread sums its
+// row in shared memory in channel order, as the strided kernel does. Tiles
+// of kTilePixels * kSumPixels pixels (51,200 B at C = 50, four blocks an
+// SM). One, two and four pixels a thread came within 0.5% of each other on
+// the H100, two and four level; two takes rows of up to 226 channels, four
+// only up to 113.
+constexpr int kSumPixels = 2;
+
+struct RowSum {
+  int C;
+  __device__ __forceinline__ void operator()(const float* row, float, float, float,
+                                             float* out) const {
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c) acc += row[c];
+    *out = acc;
   }
+};
+
+__global__ void __launch_bounds__(mdlt::kTilePixels)
+    channel_sum_tiled_kernel(const mdlt::ReadOperands<float> a) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  mdlt::for_each_tile_read<float, 1, kSumPixels, false>(a, tile_smem, RowSum{a.C});
 }
 
 // -- null-body MoDL kernels, direct -------------------------------------------
@@ -187,76 +183,27 @@ __global__ void mdl_null_backward_kernel(
   }
 }
 
-// -- null-body MoDL forward, staged through shared memory -------------------------
+// -- null-body MoDL forward on the read walk ------------------------------------------
 
-// Shared memory of a staged block: the element offsets of its kThreads pixels
-// in the parameters, then the tile [kThreads, padded(C)].
+// The body in place of the likelihood: the row's sum plus the image's, in the
+// direct kernel's order.
 template <typename T>
-struct Staging {
-  int64_t* p_base;
-  T* tile;
-  __device__ explicit Staging(unsigned char* smem)
-      : p_base(reinterpret_cast<int64_t*>(smem)),
-        tile(reinterpret_cast<T*>(p_base + kThreads)) {}
+struct NullForward {
+  int C;
+  __device__ __forceinline__ void operator()(const T* row, float x0, float x1, float x2,
+                                             float* out) const {
+    const float xsum = x0 + x1 + x2;
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c) acc += load(row + c);
+    *out = acc + xsum;
+  }
 };
 
-size_t staging_bytes(int C, size_t element) {
-  return kThreads * sizeof(int64_t) + static_cast<size_t>(kThreads) * padded(C) * element;
-}
-
-// Bring n pixels' C channels from device memory (element offset base[r] +
-// c * s_c) into the tile, walking device memory in the order it lies:
-// channels fastest where the channel stride is the smaller, pixels fastest
-// otherwise.
 template <typename T>
-__device__ __forceinline__ void load_tile(const T* mem, const int64_t* base, int64_t s_c,
-                                          bool channel_minor, T* tile, int n, int C) {
-  const int CP = padded(C);
-  for (int e = threadIdx.x; e < n * C; e += kThreads) {
-    int r, c;
-    if (channel_minor) {
-      r = e / C;
-      c = e - r * C;
-    } else {
-      c = e / n;
-      r = e - c * n;
-    }
-    tile[r * CP + c] = mem[base[r] + c * s_c];
-  }
-}
-
-template <typename T>
-__global__ void mdl_null_forward_staged_kernel(
-    const float* __restrict__ x, const T* __restrict__ p, float* __restrict__ out, int C,
-    int64_t K, int64_t B, int64_t H, int64_t W,
-    int64_t xs_b, int64_t xs_h, int64_t xs_w, int64_t xs_c,
-    int64_t ps_k, int64_t ps_b, int64_t ps_h, int64_t ps_w, int64_t ps_c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Staging<T> st(smem);
-  const int CP = padded(C);
-  const int64_t total = K * B * H * W;
-  for (int64_t i0 = blockIdx.x * (int64_t)kThreads; i0 < total;
-       i0 += (int64_t)gridDim.x * kThreads) {
-    const int n = static_cast<int>(total - i0 < kThreads ? total - i0 : kThreads);
-    const bool mine = threadIdx.x < n;
-    mdla::Pixel px{0, 0, 0, 0};
-    if (mine) {
-      px = mdla::pixel_of(i0 + threadIdx.x, B, H, W);
-      st.p_base[threadIdx.x] = mdla::sample_offset(px, ps_k, ps_b, ps_h, ps_w);
-    }
-    __syncthreads();
-    load_tile<T>(p, st.p_base, ps_c, ps_c < ps_w, st.tile, n, C);
-    __syncthreads();
-    if (mine) {
-      const float* xp = x + mdla::image_offset(px, xs_b, xs_h, xs_w);
-      const float xsum = xp[0] + xp[xs_c] + xp[2 * xs_c];
-      const T* row = st.tile + threadIdx.x * CP;
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c) acc += load(row + c);
-      out[i0 + threadIdx.x] = acc + xsum;
-    }
-    __syncthreads();
-  }
+__global__ void __launch_bounds__(mdlt::kTilePixels)
+    mdl_null_forward_tiled_kernel(const mdlt::ReadOperands<T> a) {
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  mdlt::for_each_tile_read<T>(a, tile_smem, NullForward<T>{a.C});
 }
 
 // -- null-body MoDL backward on the tile path ---------------------------------------
@@ -279,34 +226,21 @@ __global__ void __launch_bounds__(mdlt::kTilePixels)
   mdlt::for_each_tile<T, false>(a, tile_smem, NullBackward<T>{a.C});
 }
 
-// Opt the kernel in to `bytes` of dynamic shared memory (above 48 KB a kernel
-// must ask). A refusal is returned and taken off the runtime's last-error
-// state, so that it is not reported again by the next launch's check.
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
 template <typename T>
-cudaError_t launch_null_forward(int staged, int C, dim3 grid, cudaStream_t s, const float* x,
-                                const T* p, float* out, int64_t K, int64_t B, int64_t H,
-                                int64_t W, int64_t xs_b, int64_t xs_h, int64_t xs_w,
-                                int64_t xs_c, int64_t ps_k, int64_t ps_b, int64_t ps_h,
-                                int64_t ps_w, int64_t ps_c) {
-  const dim3 block(kThreads);
-  if (staged) {
-    const size_t bytes = staging_bytes(C, sizeof(T));
-    const cudaError_t err = allow_shared(mdl_null_forward_staged_kernel<T>, bytes);
-    if (err != cudaSuccess) return err;
-    mdl_null_forward_staged_kernel<T><<<grid, block, bytes, s>>>(
-        x, p, out, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c);
-  } else {
-    mdl_null_forward_kernel<T><<<grid, block, 0, s>>>(
-        x, p, out, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c);
+cudaError_t launch_null_forward(int tiled, int C, cudaStream_t s, const float* x, const T* p,
+                                float* out, int64_t K, int64_t B, int64_t H, int64_t W,
+                                int64_t xs_b, int64_t xs_h, int64_t xs_w, int64_t xs_c,
+                                int64_t ps_k, int64_t ps_b, int64_t ps_h, int64_t ps_w,
+                                int64_t ps_c) {
+  if (tiled) {
+    if (!mdlt::channel_minor_dense(K, B, H, W, C, ps_k, ps_b, ps_h, ps_w, ps_c) ||
+        !mdlt::aligned16(p))
+      return cudaErrorInvalidValue;
+    return mdlt::launch<T>(mdl_null_forward_tiled_kernel<T>, s,
+                        {x, p, out, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c});
   }
+  mdl_null_forward_kernel<T><<<mdla::grid_for(K * B * H * W), dim3(kThreads), 0, s>>>(
+      x, p, out, C, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c);
   return cudaGetLastError();
 }
 
@@ -329,14 +263,13 @@ cudaError_t launch_null_backward(dim3 grid, cudaStream_t s, const float* x, cons
 // params: float32 [K, P, C] read through element strides (s_k, s_p, s_c), so
 // a channel-first [K, C, P] tensor is the same call with its strides; out:
 // contiguous float32 [K, P]. The caller names the kernel: 0 strided (any
-// strides, one thread a pixel); 1 staged (the contiguous channel-minor layout,
-// `tile` pixels a block, 32..1024 and a multiple of 32, through shared
-// memory); 2 vec4 (channel-first with pixel stride 1 and rows of a multiple
-// of 512 pixels, 16-byte loads, see channel_sum_vec4_kernel). Asked for a kernel the operands do not fit,
+// strides, one thread a pixel); 1 tiled (the read walk: the contiguous
+// channel-minor layout on a 16-byte aligned base); 2 vec4 (channel-first
+// with pixel stride 1 and rows of a multiple of 512 pixels, 16-byte loads,
+// see channel_sum_vec4_kernel). Asked for a kernel the operands do not fit,
 // it returns cudaErrorInvalidValue. Returns a cudaError_t (0 = launched).
-extern "C" int channel_sum(const void* params, void* out, int kernel, int tile, int64_t K,
-                           int64_t P, int64_t C, int64_t s_k, int64_t s_p, int64_t s_c,
-                           void* stream) {
+extern "C" int channel_sum(const void* params, void* out, int kernel, int64_t K, int64_t P,
+                           int64_t C, int64_t s_k, int64_t s_p, int64_t s_c, void* stream) {
   const int64_t total = K * P;
   if (total <= 0) return cudaSuccess;
   if (C < 1 || C > (1 << 20) || kernel < 0 || kernel > 2) return cudaErrorInvalidValue;
@@ -361,41 +294,40 @@ extern "C" int channel_sum(const void* params, void* out, int kernel, int tile, 
         static_cast<int>(s_k / 4), static_cast<int>(s_c / 4));
     return cudaGetLastError();
   }
-  if (s_c != 1 || s_p != C || s_k != P * C) return cudaErrorInvalidValue;
-  if (tile < 32 || tile > 1024 || tile % 32) return cudaErrorInvalidValue;
-  const size_t bytes = static_cast<size_t>(tile) * padded(static_cast<int>(C)) * sizeof(float);
-  const cudaError_t err = allow_shared(channel_sum_staged_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = (total + tile - 1) / tile;
-  const dim3 grid(static_cast<unsigned>(blocks < (1LL << 30) ? blocks : (1LL << 30)));
-  channel_sum_staged_kernel<<<grid, dim3(tile), bytes, s>>>(p, o, total, static_cast<int>(C));
-  return cudaGetLastError();
+  const size_t bytes = mdlt::read_smem_bytes(static_cast<int>(C), sizeof(float), kSumPixels);
+  if (!mdlt::channel_minor_dense(K, 1, 1, P, C, s_k, 0, 0, s_p, s_c) ||
+      !mdlt::aligned16(params) || bytes > kMaxSharedBytes)
+    return cudaErrorInvalidValue;
+  // the walk reads no image: its pixels are the rows, [K, 1, 1, P]
+  return mdlt::launch_persistent(channel_sum_tiled_kernel, bytes, total,
+                                 mdlt::kTilePixels * kSumPixels, s,
+                                 mdlt::ReadOperands<float>{nullptr, p, o, static_cast<int>(C), K,
+                                                           1, 1, P, 0, 0, 0, 0});
 }
 
-// The arguments of mdl_log_prob_forward plus `staged` (0 = direct reads, 1 =
-// through shared memory): x float32 [B, H, W, 3] view, params float32 or
-// bf16 [K, B, H, W, 10 * n_mix] view, out contiguous float32 [K, B, H, W].
+// The arguments of mdl_log_prob_forward, `tiled` among them (1 = the read
+// walk, for dense channel-minor params on a 16-byte aligned address,
+// cudaErrorInvalidValue for any other; 0 = the direct path): x float32
+// [B, H, W, 3] view, params float32 or bf16 [K, B, H, W, 10 * n_mix] view,
+// out contiguous float32 [K, B, H, W].
 extern "C" int mdl_null_forward(
-    const void* x, const void* params, void* out, int params_bf16, int n_mix, int staged,
+    const void* x, const void* params, void* out, int params_bf16, int n_mix, int tiled,
     int64_t K, int64_t B, int64_t H, int64_t W,
     int64_t xs_b, int64_t xs_h, int64_t xs_w, int64_t xs_c,
     int64_t ps_k, int64_t ps_b, int64_t ps_h, int64_t ps_w, int64_t ps_c,
     void* stream) {
   if (n_mix < 1 || n_mix > kMaxMix) return cudaErrorInvalidValue;
-  const int64_t total = K * B * H * W;
-  if (total <= 0) return cudaSuccess;
-  const dim3 grid = mdla::grid_for(total);
+  if (K * B * H * W <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   if (params_bf16) {
-    return launch_null_forward(staged, 10 * n_mix, grid, s, xf,
+    return launch_null_forward(tiled, 10 * n_mix, s, xf,
                                static_cast<const __nv_bfloat16*>(params), o, K, B, H, W,
                                xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c);
   }
-  return launch_null_forward(staged, 10 * n_mix, grid, s, xf, static_cast<const float*>(params),
-                             o, K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w,
-                             ps_c);
+  return launch_null_forward(tiled, 10 * n_mix, s, xf, static_cast<const float*>(params), o,
+                             K, B, H, W, xs_b, xs_h, xs_w, xs_c, ps_k, ps_b, ps_h, ps_w, ps_c);
 }
 
 // The arguments of mdl_log_prob_backward, `tiled` among them (1 = the tile
@@ -448,13 +380,25 @@ extern "C" int mdl_null_backward(
                               gs_k, gs_b, gs_h, gs_w, ds_k, ds_b, ds_h, ds_w, ds_c);
 }
 
-// Blocks an SM of the current device holds of mdl_null_backward's tile path
-// for this dtype and mixture count (what sizes its grid); 0 for a count out of
-// range.
-extern "C" int mdl_null_backward_tile_blocks_per_sm(int params_bf16, int n_mix) {
+// Blocks an SM of the current device holds of mdl_null_forward's (backward =
+// 0) or mdl_null_backward's tile path for this dtype and mixture count (what
+// sizes its grid); 0 for a count out of range.
+extern "C" int mdl_null_tile_blocks_per_sm(int params_bf16, int n_mix, int backward) {
   if (n_mix < 1 || n_mix > kMaxMix) return 0;
-  return params_bf16 ? mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<__nv_bfloat16>,
-                                           10 * n_mix, false)
-                     : mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<float>, 10 * n_mix,
-                                           false);
+  const int C = 10 * n_mix;
+  if (backward) {
+    return params_bf16
+               ? mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<__nv_bfloat16>, C, false)
+               : mdlt::blocks_per_sm(mdl_null_backward_tiled_kernel<float>, C, false);
+  }
+  return params_bf16 ? mdlt::blocks_per_sm(mdl_null_forward_tiled_kernel<__nv_bfloat16>, C)
+                     : mdlt::blocks_per_sm(mdl_null_forward_tiled_kernel<float>, C);
+}
+
+// Blocks an SM of the current device holds of channel_sum's read walk at C
+// channels, as the occupancy query sizes its grid; 0 where it is refused.
+extern "C" int channel_sum_tile_blocks_per_sm(int C) {
+  if (C < 1) return 0;
+  return mdlt::blocks_per_sm(reinterpret_cast<const void*>(channel_sum_tiled_kernel),
+                             mdlt::read_smem_bytes(C, sizeof(float), kSumPixels));
 }

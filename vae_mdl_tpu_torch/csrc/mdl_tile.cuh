@@ -1,13 +1,16 @@
 // The tile path of the likelihood kernels (the MoDL pair, the discretized-
-// logistic pair) and of the null-body twin of the MoDL backward: a block's
-// tile of pixels travels device memory -> shared memory (-> device memory,
-// for a gradient) as whole runs of bytes, moved by Hopper's bulk asynchronous
-// copies. Shared by mdl_log_prob.cu and dl_log_prob.cu (their forward and
-// gradient math as bodies) and io_probe.cu (the null body), so they have one
-// memory path by construction: for_each_tile, which writes the body's result
-// over the tile and stores it, and for_each_tile_read, its read-only sibling
-// for the forwards, which stores kOut floats a pixel (1 for the MoDL, whose
-// value is the pixel's; 3 for the discretized logistic, one a channel).
+// logistic pair), of the null-body twins of the MoDL pair and of the channel
+// sum: a block's tile of pixels travels device memory -> shared memory (->
+// device memory, for a gradient) as whole runs of bytes, moved by Hopper's
+// bulk asynchronous copies. Shared by mdl_log_prob.cu and dl_log_prob.cu
+// (their forward and gradient math as bodies) and io_probe.cu (the null
+// bodies and the channel sum's), so they have one memory path by
+// construction: for_each_tile, which writes the body's result over the tile
+// and stores it, and for_each_tile_read, its read-only sibling for the
+// forwards and the sum, which stores kOut floats a pixel (1 for the MoDL,
+// whose value is the pixel's, and for the sums; 3 for the discretized
+// logistic, one a channel). With kImage false the read walk reads rows
+// alone: no image, no pixel coordinates (the channel sum).
 //
 // When it applies. Parameters (and the gradient) are dense and channel-minor
 // over [K, B, H, W, C] (s_c = 1, s_w = C, s_h = W C, s_b = H W C,
@@ -34,7 +37,8 @@
 //   bf16's 25 none. The read-only walk may give a thread kPixels pixels of a
 //   tile of 128 kPixels (pixel j 128 + thread, j < kPixels): the
 //   discretized logistic's rows are so short (24 B) that its forward takes
-//   two (dl_log_prob.cu).
+//   two (dl_log_prob.cu); so does the channel sum (io_probe.cu, where one,
+//   two and four measured within 0.5% of each other).
 // - Loads: thread 0 starts cp.async.bulk (global -> shared, no tensor map)
 //   for the whole tile, completing on the block's mbarrier. x and the
 //   cotangent are small and read straight from device memory through their
@@ -56,8 +60,8 @@
 //   warps than from overlap inside a block, and the null body does not care.
 //   A tile a warp, each warp with its own buffer and barrier and no
 //   block-wide synchronisation, lost to the block's tile in the forward too.
-// - The read-only walk (the forwards): the same grid, residency, barrier and
-//   bulk load; no store to wait for. A thread computes its pixel's kOut
+// - The read-only walk (the forwards, the null forward, the channel sum):
+//   the same grid, residency, barrier and bulk load; no store to wait for. A thread computes its pixel's kOut
 //   values from its row and writes them to out[pixel kOut ...] (consecutive
 //   threads, consecutive runs of kOut floats); the block synchronises once
 //   every thread has read its row, and the buffer takes the next tile.
@@ -418,10 +422,11 @@ __device__ __forceinline__ void for_each_tile(const Operands<T>& a, unsigned cha
 // pixel of a tile, its thread calls
 //   body(row, x0, x1, x2, out)
 // with `row` the pixel's C parameters in shared memory, x0..x2 its image
-// values as stored and `out` its kOut values' place in the dense output,
-// which the body fills. `smem` is the kernel's dynamic shared memory,
-// read_smem_bytes() long and 128-byte aligned.
-template <typename T, int kOut = 1, int kPixels = 1, typename Body>
+// values as stored (0 without kImage: a walk over rows alone reads no image
+// and works out no pixel's coordinates) and `out` its kOut values' place in
+// the dense output, which the body fills. `smem` is the kernel's dynamic
+// shared memory, read_smem_bytes() long and 128-byte aligned.
+template <typename T, int kOut = 1, int kPixels = 1, bool kImage = true, typename Body>
 __device__ __forceinline__ void for_each_tile_read(const ReadOperands<T>& a, unsigned char* smem,
                                                    Body body) {
   constexpr int kTile = kTilePixels * kPixels;
@@ -452,7 +457,7 @@ __device__ __forceinline__ void for_each_tile_read(const ReadOperands<T>& a, uns
     for (int j = 0; j < kPixels; ++j) {
       const int i = j * kTilePixels + tid;
       x[j][0] = x[j][1] = x[j][2] = 0.0f;
-      if (i < n) {
+      if (kImage && i < n) {
         const mdla::Pixel px = pixel_of(first + i, total, a.B, a.H, a.W);
         const float* xp = a.x + mdla::image_offset(px, a.xs_b, a.xs_h, a.xs_w);
         x[j][0] = xp[0];

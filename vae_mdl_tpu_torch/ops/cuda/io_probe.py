@@ -7,10 +7,13 @@ tensor summed over C) and ``scripts/kernel_isolate2.py`` (``main``: the same
 sum from a channel-first ``[K, C, P]`` tensor). Both become ``channel_sum``
 in ``csrc/io_probe.cu`` (its header says what bounds them and how they are
 laid out): ``path="direct"`` reads each pixel's channels straight from device
-memory through the tensor's strides, ``path="staged"`` moves a tile of
-``tile`` pixels through shared memory with coalesced loads (channel-minor,
-contiguous only). The TPU probes return ``[K, P / bp, 1, bp]``, their block
-tiling; here the result is ``[K, P]``, the same numbers.
+memory through the tensor's strides; ``path="staged"`` is the read walk of
+``csrc/mdl_tile.cuh``, the memory path of the shipped forwards with no math
+(persistent blocks, tiles of ``SUM_TILE`` pixels brought into shared memory
+by one bulk asynchronous copy each, a thread summing its row there), for a
+contiguous channel-minor tensor on a 16-byte aligned base only
+(``staged_takes``). The TPU probes return ``[K, P / bp, 1, bp]``, their
+block tiling; here the result is ``[K, P]``, the same numbers.
 
 The direct path has two kernels, chosen by ``direct_kernel`` from the
 tensor's strides and address alone: ``"vec4"`` for a channel-first tensor
@@ -19,8 +22,9 @@ and sample strides multiples of 4, a 16-byte aligned base, offsets within
 32 bits): 16-byte loads of four pixels, a warp summing 512 pixels of a row,
 so that it walks 2 KB of each channel's row with 20 loads in flight;
 ``"strided"``, one thread a pixel through any strides, for everything else.
-The choice goes to the C entry point, which refuses a kernel the tensor does
-not fit.
+The staged path's kernel is ``"tiled"``. The choice goes to the C entry
+point, which refuses a kernel the tensor does not fit. Every kernel adds a
+pixel's channels in channel order, so all three give the same bits.
 
 ``channel_sum`` takes the plain version ``channel_sum_plain`` for CPU tensors
 and launches the kernel (``channel_sum_cuda``) for CUDA tensors, which
@@ -32,20 +36,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from vae_mdl_tpu_torch.ops.cuda.build import CSRC, build
+from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import dense_aligned
 
 SOURCE = CSRC / "io_probe.cu"
 LAYOUTS = ("channel_minor", "channel_first")
 PATHS = ("direct", "staged")
-KERNELS = ("strided", "staged", "vec4")  # the C entry point's numbering
+KERNELS = ("strided", "tiled", "vec4")  # the C entry point's numbering
 VEC4_ROW = 512  # pixels a warp of the vec4 kernel sums: its rows are whole warps' worth
-# shared memory a block can use on Hopper (227 KB); a staged tile holds `tile`
-# rows of C float32 values padded to an odd length
-MAX_SHARED_BYTES = 232_448
+# pixels a tile of the staged path's read walk: csrc/mdl_tile.cuh kTilePixels
+# times csrc/io_probe.cu kSumPixels
+SUM_PIXELS = 2
+SUM_TILE = 128 * SUM_PIXELS
+# the widest row the staged path takes: a tile of SUM_TILE float32 rows and the
+# walk's 8-byte barrier within a block's 232,448 B of shared memory on Hopper
+# (csrc/io_probe.cu kMaxSharedBytes)
+SUM_MAX_CHANNELS = (232448 - 8) // (4 * SUM_TILE)
 
 # kernel launches since the counter was last set to 0, and the same by
 # (layout, path) and by kernel: the two probes and their memory paths share
@@ -61,14 +71,16 @@ def library() -> ctypes.CDLL:
     MoDL kernels' (``ops/cuda/mdl_null.py``) entry points typed."""
     lib = ctypes.CDLL(str(build(SOURCE)))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.channel_sum.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
+    lib.channel_sum.argtypes = [ptr, ptr, i32] + [i64] * 6 + [ptr]
     lib.channel_sum.restype = i32
+    lib.channel_sum_tile_blocks_per_sm.argtypes = [i32]
+    lib.channel_sum_tile_blocks_per_sm.restype = i32
     lib.mdl_null_forward.argtypes = [ptr] * 3 + [i32] * 3 + [i64] * 13 + [ptr]
     lib.mdl_null_forward.restype = i32
     lib.mdl_null_backward.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 22 + [ptr]
     lib.mdl_null_backward.restype = i32
-    lib.mdl_null_backward_tile_blocks_per_sm.argtypes = [i32] * 2
-    lib.mdl_null_backward_tile_blocks_per_sm.restype = i32
+    lib.mdl_null_tile_blocks_per_sm.argtypes = [i32] * 3
+    lib.mdl_null_tile_blocks_per_sm.restype = i32
     return lib
 
 
@@ -100,15 +112,25 @@ def direct_kernel(params: torch.Tensor, layout: str = "channel_minor") -> str:
     return "vec4" if fits else "strided"
 
 
+def staged_takes(shape: Sequence[int], strides: Sequence[int], dtype: torch.dtype,
+                 address: int) -> bool:
+    """Whether the staged path takes a tensor of this description, as the C
+    entry point decides: a float32 ``[K, P, C]`` that is non-empty, dense and
+    contiguous on a 16-byte aligned address (``mdl_kernel.dense_aligned``),
+    with at most ``SUM_MAX_CHANNELS`` channels, so that its tile fits a
+    block's shared memory."""
+    return (dtype == torch.float32 and len(shape) == 3 and shape[2] <= SUM_MAX_CHANNELS
+            and dense_aligned(shape, strides, address))
+
+
 def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
-                     path: str = "direct", tile: int = 256,
-                     kernel: Optional[str] = None) -> torch.Tensor:
+                     path: str = "direct", kernel: Optional[str] = None) -> torch.Tensor:
     """The kernel: a float32 CUDA tensor ``[K, P, C]`` (channel-minor) or
-    ``[K, C, P]`` (channel-first), any strides on the direct path, contiguous
-    channel-minor on the staged one -> contiguous ``[K, P]`` float32.
-    ``kernel`` names the direct path's kernel; ``None`` takes
-    ``direct_kernel``'s choice, and ``"vec4"`` on a tensor that does not fit
-    it raises."""
+    ``[K, C, P]`` (channel-first), any strides on the direct path, what
+    ``staged_takes`` accepts on the staged one (anything else raises before a
+    launch) -> contiguous ``[K, P]`` float32. ``kernel`` names the direct
+    path's kernel; ``None`` takes ``direct_kernel``'s choice, and ``"vec4"``
+    on a tensor that does not fit it raises."""
     global launches
     channel_dim = _channel_dim(layout)
     if path not in PATHS:
@@ -116,6 +138,11 @@ def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
     if kernel is not None and (path != "direct" or kernel not in ("strided", "vec4")):
         raise ValueError(f"the direct path's kernel is 'strided' or 'vec4'; got {kernel!r} "
                          f"on the {path} path")
+    staged = path == "staged"
+    if staged and not (layout == "channel_minor" and staged_takes(
+            params.shape, params.stride(), params.dtype, params.data_ptr())):
+        raise ValueError("the staged path takes a contiguous channel-minor float32 tensor of "
+                         "at most 226 channels on a 16-byte aligned address")
     if not params.is_cuda:
         raise ValueError(f"the channel-sum kernel takes CUDA tensors only; got {params.device}")
     if params.dtype != torch.float32 or params.dim() != 3:
@@ -125,21 +152,13 @@ def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
     p, c = params.shape[3 - channel_dim], params.shape[channel_dim]
     s_k = params.stride(0)
     s_p, s_c = params.stride(3 - channel_dim), params.stride(channel_dim)
-    staged = path == "staged"
-    if staged and not (layout == "channel_minor" and params.is_contiguous()):
-        raise ValueError("the staged path takes a contiguous channel-minor tensor")
-    if staged and (tile % 32 or not 32 <= tile <= 1024):
-        raise ValueError(f"tile must be a multiple of 32 in [32, 1024]; got {tile}")
-    if staged and tile * (c | 1) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"a tile of {tile} pixels x {c} channels needs {tile * (c | 1) * 4} "
-                         f"bytes of shared memory; a block has {MAX_SHARED_BYTES}")
     out = torch.empty((k, p), device=params.device, dtype=torch.float32)
     if out.numel():
-        kernel = "staged" if staged else kernel or direct_kernel(params, layout)
+        kernel = "tiled" if staged else kernel or direct_kernel(params, layout)
         with torch.cuda.device(params.device):
-            err = library().channel_sum(params.data_ptr(), out.data_ptr(),
-                                        KERNELS.index(kernel), tile, k, p, c, s_k, s_p, s_c,
-                                        torch.cuda.current_stream().cuda_stream)
+            err = library().channel_sum(
+                params.data_ptr(), out.data_ptr(), KERNELS.index(kernel), k, p, c, s_k, s_p,
+                s_c, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"channel_sum kernel launch ({kernel}) failed: CUDA error {err}")
         launches += 1
@@ -148,10 +167,17 @@ def channel_sum_cuda(params: torch.Tensor, layout: str = "channel_minor",
     return out
 
 
+def tile_blocks_per_sm(channels: int) -> int:
+    """Blocks an SM of the current CUDA device holds of the staged path's
+    read walk at ``channels`` channels, as the occupancy query sizes its
+    persistent grid."""
+    return library().channel_sum_tile_blocks_per_sm(channels)
+
+
 def channel_sum(params: torch.Tensor, layout: str = "channel_minor", path: str = "direct",
-                tile: int = 256, kernel: Optional[str] = None) -> torch.Tensor:
+                kernel: Optional[str] = None) -> torch.Tensor:
     """Per-pixel sum over the channels: the plain version for CPU tensors,
     the kernel for CUDA tensors."""
     if params.device.type == "cpu":
         return channel_sum_plain(params, layout)
-    return channel_sum_cuda(params, layout, path, tile, kernel)
+    return channel_sum_cuda(params, layout, path, kernel)

@@ -51,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -144,24 +144,46 @@ def _launch(x01: torch.Tensor, parameters: torch.Tensor,
     return out.unsqueeze(-1)
 
 
+def dense_aligned(shape: Sequence[int], strides: Sequence[int], address: int) -> bool:
+    """Whether a tensor of this shape, these element strides and this address
+    is non-empty and dense in row-major order (channel-minor: ``is_contiguous``'s
+    rule, under which the stride of a dimension of one element does not
+    matter, as for ``mdlt::channel_minor_dense``) on a 16-byte aligned
+    address: what a bulk copy moves as one run of bytes a tile."""
+    if 0 in tuple(shape):
+        return False
+    want = 1
+    for n, stride in zip(reversed(tuple(shape)), reversed(tuple(strides))):
+        if n != 1 and stride != want:
+            return False
+        want *= n
+    return address % 16 == 0
+
+
+def path_for(shape: Sequence[int], strides: Sequence[int], dtype: torch.dtype,
+             address: int) -> str:
+    """``forward_path`` from the parameters' description alone: ``"tiled"``
+    for a dense channel-minor float32 or bfloat16 tensor on a 16-byte aligned
+    address (``dense_aligned``), ``"direct"`` for anything else."""
+    fits = dtype in (torch.float32, torch.bfloat16) and dense_aligned(shape, strides, address)
+    return "tiled" if fits else "direct"
+
+
 def _tile_operand(t: torch.Tensor) -> bool:
-    """What the tile path takes of one operand: a non-empty, dense,
-    channel-minor float32 or bfloat16 tensor on a 16-byte aligned address
-    (``is_contiguous`` ignores the stride of a dimension of one element, as
-    ``mdlt::channel_minor_dense`` does)."""
-    return (t.numel() > 0 and t.dtype in (torch.float32, torch.bfloat16)
-            and t.is_contiguous() and t.data_ptr() % 16 == 0)
+    """What the tile path takes of one operand (``path_for``)."""
+    return path_for(t.shape, t.stride(), t.dtype, t.data_ptr()) == "tiled"
 
 
 def forward_path(parameters: torch.Tensor) -> str:
     """The memory path the forward kernel takes for these parameters, from
-    their strides, dtype and address alone: ``"tiled"`` where they are a
-    dense channel-minor ``[k, B, H, W, C]`` float32 or bfloat16 tensor on a
-    16-byte aligned address, so that ``TILE_PIXELS`` consecutive pixels are
-    one run of bytes a bulk copy can move; ``"direct"`` for anything else
-    (NCHW strides, a sliced or misaligned view) and for empty parameters,
-    which launch nothing."""
-    return "tiled" if _tile_operand(parameters) else "direct"
+    their strides, dtype and address alone (``path_for``): ``"tiled"`` where
+    they are a dense channel-minor ``[k, B, H, W, C]`` float32 or bfloat16
+    tensor on a 16-byte aligned address, so that ``TILE_PIXELS`` consecutive
+    pixels are one run of bytes a bulk copy can move; ``"direct"`` for
+    anything else (NCHW strides, a sliced or misaligned view) and for empty
+    parameters, which launch nothing."""
+    return path_for(parameters.shape, parameters.stride(), parameters.dtype,
+                    parameters.data_ptr())
 
 
 def backward_path(parameters: torch.Tensor, dp: torch.Tensor) -> str:

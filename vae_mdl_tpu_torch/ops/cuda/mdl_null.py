@@ -14,22 +14,25 @@ output element and do no likelihood math:
 operands' strides, one thread a pixel: in the model's channel-minor layout
 its gradient write is uncoalesced, so it is slow there by construction; it is
 the control whose distance from ``"staged"`` is the staging term.
-``variant="staged"`` moves each block's tile through shared memory: the
-forward with coalesced loads into padded rows; the backward on the MoDL
-backward's own memory path and dispatch (``mdl_kernel.backward_path``: the
-tile path of ``csrc/mdl_tile.cuh``, bulk asynchronous copies in and out, for
-dense channel-minor operands, the direct path for any other), so it prices
-exactly the I/O of the kernel it mirrors. Put in place of the MoDL likelihood
-in a timed train step (``probes/kernel_structure.py``), they split the step's
-cost into launch + traffic, staging and math. The numbers mean nothing as a
-likelihood.
+``variant="staged"`` takes the shipped MoDL kernels' own memory paths and
+dispatch in both directions (``forward_path``, ``backward_path``): for dense
+channel-minor operands on 16-byte aligned addresses the tile path of
+``csrc/mdl_tile.cuh`` (persistent blocks, a bulk asynchronous copy of each
+tile into shared memory; the forward sums each row there on the MoDL
+forward's read walk, the backward writes its result over the tile and sends
+it back with one bulk store), the direct path for any other layout. So it
+prices exactly the I/O of the kernels it mirrors. Each sum adds a pixel's
+channels in order on every path, so both variants give the same bits. Put
+in place of the MoDL likelihood in a timed train step
+(``probes/kernel_structure.py``), they split the step's cost into launch +
+traffic, staging and math. The numbers mean nothing as a likelihood.
 
 ``mdl_null_forward`` and ``mdl_null_backward`` take the plain versions for
 CPU tensors and launch the kernels for CUDA tensors; ``mdl_null_log_prob`` is
 the differentiable pair behind a ``torch.autograd.Function`` with the
 signature of ``mdl_kernel.mdl_log_prob``. ``launches`` and
-``backward_launches`` count the kernels' launches,
-``backward_launches_by_path`` the backward's by memory path.
+``backward_launches`` count the kernels' launches, ``launches_by_path`` and
+``backward_launches_by_path`` the same by memory path.
 """
 from __future__ import annotations
 
@@ -38,19 +41,16 @@ from typing import Dict
 import torch
 
 from vae_mdl_tpu_torch.ops.cuda import io_probe
-from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import (
-    PATHS,
-    _check,
-    _check_cotangent,
-    backward_path,
-)
+from vae_mdl_tpu_torch.ops.cuda import mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda.mdl_kernel import PATHS, _check, _check_cotangent
 
 VARIANTS = ("dma", "staged")
 
 # kernel launches since the counter was last set to 0: forward, backward, and
-# the backward's by memory path
+# each by memory path
 launches = 0
 backward_launches = 0
+launches_by_path: Dict[str, int] = dict.fromkeys(PATHS, 0)
 backward_launches_by_path: Dict[str, int] = dict.fromkeys(PATHS, 0)
 
 
@@ -58,6 +58,20 @@ def _staged(variant: str) -> int:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
     return int(variant == "staged")
+
+
+def forward_path(parameters: torch.Tensor, variant: str) -> str:
+    """The forward's memory path: ``"direct"`` for ``"dma"`` whatever the
+    layout; for ``"staged"`` the MoDL forward's own choice,
+    ``mdl_kernel.forward_path`` (``mdl_kernel.path_for`` on the parameters'
+    strides, dtype and address)."""
+    return mdl_kernel.forward_path(parameters) if _staged(variant) else "direct"
+
+
+def backward_path(parameters: torch.Tensor, dp: torch.Tensor, variant: str) -> str:
+    """The backward's memory path: ``"direct"`` for ``"dma"``; for
+    ``"staged"`` the MoDL backward's own choice, ``mdl_kernel.backward_path``."""
+    return mdl_kernel.backward_path(parameters, dp) if _staged(variant) else "direct"
 
 
 def mdl_null_forward_plain(x01: torch.Tensor, parameters: torch.Tensor) -> torch.Tensor:
@@ -76,39 +90,42 @@ def mdl_null_backward_plain(x01: torch.Tensor, parameters: torch.Tensor,
 
 def mdl_null_forward_cuda(x01: torch.Tensor, parameters: torch.Tensor,
                           variant: str = "dma") -> torch.Tensor:
-    """The forward kernel, on what ``mdl_kernel.mdl_log_prob_cuda`` takes."""
+    """The forward kernel, on what ``mdl_kernel.mdl_log_prob_cuda`` takes,
+    on the path ``forward_path`` names."""
     global launches
-    staged = _staged(variant)
+    _staged(variant)
     _check(x01, parameters)
     k, b, h, w, c = parameters.shape
     out = torch.empty((k, b, h, w), device=parameters.device, dtype=torch.float32)
     if out.numel():
+        path = forward_path(parameters, variant)
         with torch.cuda.device(parameters.device):
             err = io_probe.library().mdl_null_forward(
                 x01.data_ptr(), parameters.data_ptr(), out.data_ptr(),
-                int(parameters.dtype == torch.bfloat16), c // 10, staged,
+                int(parameters.dtype == torch.bfloat16), c // 10, int(path == "tiled"),
                 k, b, h, w, *x01.stride(), *parameters.stride(),
                 torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"mdl_null_forward kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"mdl_null_forward kernel launch ({path} path) failed: "
+                               f"CUDA error {err}")
         launches += 1
+        launches_by_path[path] += 1
     return out.unsqueeze(-1)
 
 
 def mdl_null_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor, g: torch.Tensor,
                            variant: str = "dma") -> torch.Tensor:
     """The backward kernel, on what ``mdl_kernel.mdl_backward_cuda`` takes:
-    the result has the parameters' dtype and strides. ``"dma"`` is the direct
-    path whatever the layout; ``"staged"`` the path the MoDL backward takes
-    for these operands."""
+    the result has the parameters' dtype and strides, on the path
+    ``backward_path`` names."""
     global backward_launches
-    staged = _staged(variant)
+    _staged(variant)
     _check(x01, parameters)
     _check_cotangent(parameters, g)
     k, b, h, w, c = parameters.shape
     dp = torch.empty_like(parameters)
     if dp.numel():
-        path = backward_path(parameters, dp) if staged else "direct"
+        path = backward_path(parameters, dp, variant)
         with torch.cuda.device(parameters.device):
             err = io_probe.library().mdl_null_backward(
                 x01.data_ptr(), parameters.data_ptr(), g.data_ptr(), dp.data_ptr(),
@@ -124,11 +141,13 @@ def mdl_null_backward_cuda(x01: torch.Tensor, parameters: torch.Tensor, g: torch
     return dp
 
 
-def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int) -> int:
+def tile_blocks_per_sm(dtype: torch.dtype, n_mix: int, forward: bool = False) -> int:
     """Blocks an SM of the current CUDA device holds of the null backward's
-    tile path for parameters of ``dtype`` with ``n_mix`` mixtures."""
-    return io_probe.library().mdl_null_backward_tile_blocks_per_sm(
-        int(dtype == torch.bfloat16), n_mix)
+    (or, with ``forward``, the null forward's) tile path for parameters of
+    ``dtype`` with ``n_mix`` mixtures, as the occupancy query sizes its
+    persistent grid."""
+    return io_probe.library().mdl_null_tile_blocks_per_sm(
+        int(dtype == torch.bfloat16), n_mix, int(not forward))
 
 
 def _all_cpu(*tensors) -> bool:

@@ -24,9 +24,13 @@ Measured:
   k = 100), NHWC and NCHW;
 - the MoDL kernels' device time a launch on model05's own head output at
   initialisation, f32 and with the bf16 boundary (forward at k = 5 and 100,
-  backward at k = 5), from the profiler;
-- the channel sums of ``probes/kernel_isolate.py`` (P1 direct, P1 staged at
-  a tile of 256) and ``kernel_isolate2.py`` (P2), with the library's sums;
+  backward at k = 5), from the profiler and from a replayed CUDA graph (the
+  steadier of the two);
+- the channel sums of ``probes/kernel_isolate.py`` (P1 direct, P1 staged)
+  and ``kernel_isolate2.py`` (P2), with the library's sums;
+- the null-body MoDL forward (P3 fwd, ``ops/cuda/mdl_null.py``), both
+  variants, f32 and bf16 at k = 5 and 100, NHWC, on the device (a replayed
+  CUDA graph);
 - the discretized-logistic pair on the halves of a channels-last head (the
   model's layout): the forward at k = 5 and 100 and the backward at k = 5,
   on branch-heavy inputs (``chip_smoke.py``'s) and on model03's own head
@@ -57,7 +61,7 @@ import vae_mdl_tpu_torch
 from vae_mdl_tpu_torch.evaluation.harness import evaluate_llh
 from vae_mdl_tpu_torch.models.vae import build_model
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
-from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel
+from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel, mdl_null
 from vae_mdl_tpu_torch.probes.kernel_isolate import probe_params
 from vae_mdl_tpu_torch.probes.roofline import head_parameters, kernel_device_ms
 from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
@@ -129,7 +133,7 @@ def kernel_times(say) -> dict:
 
     params = probe_params("channel_minor")
     ms["P1 direct"] = cuda_ms(lambda: io_probe.channel_sum(params, path="direct"), 5)
-    ms["P1 staged tile=256"] = cuda_ms(lambda: io_probe.channel_sum(params, path="staged"), 5)
+    ms["P1 staged"] = cuda_ms(lambda: io_probe.channel_sum(params, path="staged"), 5)
     ms["library sum(-1)"] = cuda_ms(lambda: params.sum(-1), 5)
     del params
     params = probe_params("channel_first")
@@ -138,6 +142,24 @@ def kernel_times(say) -> dict:
     del params
     torch.cuda.empty_cache()
     say(", ".join(f"{case} {t:.4f} ms" for case, t in ms.items() if "P" in case or "sum" in case))
+    return ms
+
+
+def null_forward_ms(say) -> dict:
+    """P3's null forward, ``dma`` and ``staged``, on the device at the MoDL
+    forward's contracts (f32 and bf16, k = 5 and 100), NHWC."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ms = {}
+    for _, k, dtype in CONTRACTS:
+        x, p, _ = modl_inputs(k, dtype, gen)
+        tag = f"{dtype}".split(".")[1] + f" k={k} nhwc"
+        for variant in ("dma", "staged"):
+            ms[f"P3 forward {variant} device {tag}"] = float(np.median([graph_ms(
+                lambda: mdl_null.mdl_null_forward(x, p, variant), 20) for _ in range(3)]))
+        say(f"P3 forward {tag}: device " + ", ".join(
+            f"{v} {ms[f'P3 forward {v} device {tag}']:.4f} ms" for v in ("dma", "staged")))
+        del x, p
+    torch.cuda.empty_cache()
     return ms
 
 
@@ -159,9 +181,16 @@ def model_device_ms(say) -> dict:
                 got = kernel_device_ms(lambda: (mdl_kernel.mdl_log_prob(x, params),
                                                 mdl_kernel.mdl_backward(x, params, g)))
                 ms[f"device backward model05 {which} k={k}"] = got["backward"]
+                got["backward, graph"] = ms[f"graph backward model05 {which} k={k}"] = float(
+                    np.median([graph_ms(lambda: mdl_kernel.mdl_backward(x, params, g), 20)
+                               for _ in range(3)]))
             else:
                 got = kernel_device_ms(lambda: mdl_kernel.mdl_log_prob(x, params), reps=5)
             ms[f"device forward model05 {which} k={k}"] = got["forward"]
+            with torch.inference_mode():
+                got["forward, graph"] = ms[f"graph forward model05 {which} k={k}"] = float(
+                    np.median([graph_ms(lambda: mdl_kernel.mdl_log_prob(x, params),
+                                        20 if k == 5 else 5) for _ in range(3)]))
             say(f"model05 head {which} {params.dtype} k={k} strides {params.stride()}: device "
                 + ", ".join(f"{kind} {t:.4f} ms" for kind, t in got.items()))
             del x, params, g
@@ -327,6 +356,7 @@ def main(argv) -> int:
     package = str(vae_mdl_tpu_torch.__path__[0])
     print(f"{argv[1]}: {package} on {torch.cuda.get_device_name(0)}", flush=True)
     ms = kernel_times(lambda line: print(f"{argv[1]}: {line}", flush=True))
+    ms.update(null_forward_ms(lambda line: print(f"{argv[1]}: {line}", flush=True)))
     ms.update(model_device_ms(lambda line: print(f"{argv[1]}: {line}", flush=True)))
     ms.update(dl_times(lambda line: print(f"{argv[1]}: {line}", flush=True)))
     ms.update(train_step_profile(lambda line: print(f"{argv[1]}: {line}", flush=True)))

@@ -8,9 +8,11 @@ step, and the components are read off the differences between four steps:
   dl_head : no mixture kernels at all: a discretized-logistic head
   dma     : kernels that only read and write what the MoDL kernels read and
             write, straight from device memory -> launch + traffic
-  staged  : the same on the shipped kernels' memory paths (the backward on the
-            MoDL backward's tile path) -> what staging costs
-  full    : the shipped kernels -> the math
+  staged  : the same on the shipped kernels' memory paths in both directions
+            (the MoDL forward's read walk and the MoDL backward's tile path,
+            by the MoDL kernels' own dispatch) -> what staging costs
+  full    : the shipped kernels -> the math (full - staged prices the MoDL
+            kernels' math alone: the two steps share every memory path)
 
 A train step here is held by the host, so each step is timed twice: the wall
 time through ``utils/timing.py`` and the device's busy time from
@@ -63,15 +65,15 @@ def reset_counts() -> None:
         kernels.launches = kernels.backward_launches = 0
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.backward_launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
-    for kernels in (mdl_kernel, dl_kernel):
+    for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
 
 
 def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> dict:
     """One of the four steps: wall ms per step (median of the harness's
     blocks), device-busy ms per step (one traced call of ``spc`` steps) and
-    the launches of every likelihood kernel, counted from 0, the MoDL
-    forward and the two backwards' also by memory path."""
+    the launches of every likelihood kernel, counted from 0, and each
+    kernel's also by memory path."""
     over = {"likelihood": "dl"} if label == "dl_head" else None
     swap = likelihood_swapped(label) if label in mdl_null.VARIANTS else contextlib.nullcontext()
     reset_counts()
@@ -83,6 +85,7 @@ def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> 
             "by_class": r["by_class"], "traced_wall_ms": r["traced_wall_ms"],
             "launches": launch_counts(),
             "forward_paths": {"mdl_log_prob": dict(mdl_kernel.launches_by_path),
+                              "mdl_null_forward": dict(mdl_null.launches_by_path),
                               "dl_log_prob": dict(dl_kernel.launches_by_path)},
             "backward_paths": {"mdl_log_prob_backward": dict(mdl_kernel.backward_launches_by_path),
                                "mdl_null_backward": dict(mdl_null.backward_launches_by_path),
