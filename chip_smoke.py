@@ -129,10 +129,28 @@ and nothing falls back to a plain version.
    walk);
 11. a ``torch.profiler`` breakdown of device time by kernel class over 5
    train steps of each config of model05 and model03, with each kernel's
-   device time per launch.
+   device time per launch;
+12. the ladder families, ``ladder_svhn`` and ``biladder_svhn`` (float32) and
+   ``biladder_celeba`` (its bf16 body), each at full width with seeded
+   weights and seeded uint8 images of its shape: one train step's loss and
+   every gradient leaf through the DL kernels against the plain version
+   (rezero gates opened; phase 9's tolerances, but ``GRAD_RTOL_BF16`` for
+   the gradients of biladder_celeba's bf16 body, which is also held to
+   phase 9's with a float32 body); the main paths with
+   every count set to 0 just before and read just after: the
+   5000-importance-sample evaluation (k-chunks of 100, 128 images; 32 for
+   biladder_celeba) timed with CUDA events, with a 200-sample evaluation
+   through the kernel and the plain version agreeing per image, and training
+   at batch 128, k = 5, 10 steps a call (median imgs/s of 5 calls, peak
+   memory, a finite falling loss), every DL forward and backward on the
+   tile path; the profile of phase 11; and the DL pair on each ladder's own
+   head output at the train shape (forward and backward) and at the eval
+   chunk's (forward), both paths in turns against the plain version and
+   the bound.
 
-The last three lines: the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. In the record, ``launches``
+Each phase prints the seconds it took. The last three lines: the kernels'
+JSON record, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. In the record, ``launches``
 counts the main paths' launches (``launches_by_path`` splits them), ``ms``
 and ``plain_ms`` are CUDA-event times per call through the wrapper at the
 shape named in ``shape``, ``bound_ms`` is the least time the card could take
@@ -158,8 +176,10 @@ sizes its grid); the MoDL forward and the DL pair also ``device_ms`` and
 model's own head output (model05's at k = 100 for the MoDL forward,
 model03's at k = 100 for the DL forward and k = 5 for its backward:
 ``model_head_device_ms``, ``model_head_device_ms_direct``, with the DL
-pair's ``model_head_bound_ms``); the DL and null pairs'
-``launches_by_memory_path`` splits their main-path launches by memory path;
+pair's ``model_head_bound_ms``), and the DL pair's ``ladder_heads`` the
+same on each ladder's head (phase 12, with ``plain_ms``); the DL and null
+pairs' ``launches_by_memory_path`` splits their main-path launches by memory
+path;
 P2 carries ``ms_strided``, its strided kernel timed in turns with the vec4
 one; P1 staged ``tile_pixels`` and ``blocks_per_sm``; the null forwards
 ``device_ms``, the staged one also ``device_ms_direct`` (its dma
@@ -186,7 +206,7 @@ from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
 from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
 from vae_mdl_tpu_torch.models.objective import compute_loss, training_loss_fn
-from vae_mdl_tpu_torch.models.vae import build_model, prior_for
+from vae_mdl_tpu_torch.models.vae import build_model, latent_shapes, prior_for
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
@@ -248,6 +268,14 @@ F64_RATIO = 1.2
 # 6.6e-5 on model05's decoder.Dense_0.weight (H100, cuDNN deterministic), the
 # largest of all leaves; the bound is 3x that.
 GRAD_RTOL = 2e-4
+# The same in a bf16 body (biladder_celeba): the float32 head's gradients,
+# equal to a few float32 ulps, round to bf16 on their way into the body's
+# backward, and where the two straddle a rounding boundary they differ by one
+# bf16 ulp, 2^-8 of the value, from there on; the tolerance is two of those
+# (measured 5.0e-3 on enc_0.ResidualBlock_0.gate, a sum that cancels, and
+# 1.1e-3 on stem.weight at batch 16; H100). The same model with a float32
+# body is held to GRAD_RTOL.
+GRAD_RTOL_BF16 = 8e-3
 MODL_SOURCE = "vae_mdl_tpu_torch/csrc/mdl_log_prob.cu"
 DL_SOURCE = "vae_mdl_tpu_torch/csrc/dl_log_prob.cu"
 REPLACES = "vae_mdl_tpu/ops/pallas/mdl_kernel.py:227"
@@ -257,6 +285,11 @@ REPLACES_DL = "vae_mdl_tpu/ops/pallas/dl_kernel.py:61"
 REPLACES_DL_BACKWARD_NOTE = "the jnp vjp _bwd at vae_mdl_tpu/ops/pallas/dl_kernel.py:96"
 TRAIN_STEPS_PER_CALL = 10
 TRAIN_BLOCKS = 5
+# the ladder families, each in its own config (biladder_celeba's body bf16)
+LADDERS = ("ladder_svhn", "biladder_svhn", "biladder_celeba")
+# images a batch of the 5000-IS evaluation where it is not BATCH: one bf16
+# activation of biladder_celeba's k-chunk of 100 is 1.7 GB at 32 images
+EVAL_BATCH = {"biladder_celeba": 32}
 # the model's discretized-logistic head: 256 levels on [0, 1]
 DL_BIN = (0.0, 1.0, 1.0 / 255.0)
 
@@ -862,16 +895,17 @@ def head_view(head: torch.Tensor, k: int) -> torch.Tensor:
     return head.reshape(k, n // k, c, h, w).permute(0, 1, 3, 4, 2)
 
 
-def model03_head(k: int):
-    """model03's own head output at initialisation (float32 config, seeded
-    weights and noise) on one seeded batch of 128: (x in [0, 1], the head
-    ``[k, B, 32, 32, 6]`` as the decoder hands it on)."""
-    model = seeded_model(MODELS["model03"])
-    x = torch.as_tensor(images(BATCH), device="cuda").float() / 255.0
+def model_head(name: str, k: int, batch: int = BATCH):
+    """A DL model's own head output at initialisation (its config, seeded
+    weights and noise) on one seeded batch: (x in [0, 1], the head ``[k, B,
+    H, W, 6]`` as the decoder hands it on)."""
+    cfg = MODELS[name]
+    model = seeded_model(cfg)
+    x = torch.as_tensor(images(batch, cfg.image_shape), device="cuda").float() / 255.0
     with torch.no_grad():
         dist = model(x, k, generator=torch.Generator("cuda").manual_seed(SEED))[2].dist
     if not dist._halves_of_head():
-        raise AssertionError("model03's observation does not carry its head")
+        raise AssertionError(f"{name}'s observation does not carry its head")
     return x, dist.head
 
 
@@ -885,6 +919,80 @@ def dl_bwd(x, loc, logscale, g, path=None):
     return dl_kernel.dl_backward(x, loc, logscale, g, low, high, width, path=path)
 
 
+def dl_plain(x, loc, logscale):
+    low, high, width = DL_BIN
+    return discretized_logistic_log_prob(x, loc, logscale, low=low, high=high,
+                                         interval_width=width)
+
+
+def dl_forward_bound(x, loc, logscale, out, counts):
+    calls = cascade_transcendentals(counts)
+    return bound(distinct_bytes(x, loc, logscale, out),
+                 sum(DL_FWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
+
+
+def dl_backward_bound(x, loc, logscale, g, grads, counts):
+    calls = cascade_transcendentals(counts, backward=True)
+    return bound(distinct_bytes(x, loc, logscale, g, *grads),
+                 sum(DL_BWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
+
+
+def head_cases(label: str, x, head, gen: torch.Generator, backward: bool, reps: int):
+    """Both DL paths on a model's own head output, in turns (CUDA events, and
+    the device's time from CUDA graphs), against the plain version and the
+    bound on this data; the backward with the cotangent the sum over an
+    image's axes gives. -> (forward case, backward case or None)."""
+    low, high, width = DL_BIN
+    k, batch = head.shape[:2]
+    loc, logscale = torch.chunk(head, 2, dim=-1)
+    if dl_kernel.forward_path(x, loc, logscale) != "tiled":
+        raise AssertionError(f"{label}: not on the tile path")
+    counts = branch_counts(x, loc, logscale, low, high, width)
+    with torch.inference_mode():
+        got = dl_fwd(x, loc, logscale)
+        equal = bool(torch.equal(got, dl_fwd(x, loc, logscale, "direct")))
+        fns = {"tiled": lambda: dl_fwd(x, loc, logscale),
+               "direct": lambda: dl_fwd(x, loc, logscale, "direct")}
+        turns = in_turns(fns, TURNS, reps)
+        device = in_turns(fns, TURNS, reps, graph_ms)
+        plain_ms = cuda_ms(lambda: dl_plain(x, loc, logscale), 5)
+    bound_ms, bound_by, by, _ = dl_forward_bound(x, loc, logscale, got, counts)
+    say(f"{label} forward (tiled path): "
+        f"{turns['tiled']:.4f} ms, direct {turns['direct']:.4f} ms in turns; on the "
+        f"device {device['tiled']:.4f} ms, direct {device['direct']:.4f}; plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}), share "
+        f"{bound_ms / device['tiled']:.1%}; bit-equal {equal}; branches {counts}")
+    if not equal:
+        raise AssertionError(f"{label}: the forward's paths differ")
+    fwd = dict(shape=list(head.shape), ms=turns["tiled"], ms_direct=turns["direct"],
+               device_ms=device["tiled"], device_ms_direct=device["direct"], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    del got
+    if not backward:
+        return fwd, None
+    g = torch.randn((k, batch, 1, 1, 1), generator=gen, device="cuda").expand(loc.shape)
+    d_got = dl_bwd(x, loc, logscale, g)
+    equal = all(torch.equal(a, b) for a, b in zip(d_got, dl_bwd(x, loc, logscale, g, "direct")))
+    fns = {"tiled": lambda: dl_bwd(x, loc, logscale, g),
+           "direct": lambda: dl_bwd(x, loc, logscale, g, "direct")}
+    turns = in_turns(fns, TURNS, reps)
+    device = in_turns(fns, TURNS, reps, graph_ms)
+    plain_ms = cuda_ms(
+        lambda: dl_kernel.dl_backward_plain(x, loc, logscale, g, low, high, width), 5)
+    bound_ms, bound_by, by, _ = dl_backward_bound(x, loc, logscale, g, d_got, counts)
+    say(f"{label} backward (tiled path): {turns['tiled']:.4f} ms, direct "
+        f"{turns['direct']:.4f} ms in turns; on the device {device['tiled']:.4f} ms, "
+        f"direct {device['direct']:.4f}; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bounds_text(by)}), share {bound_ms / device['tiled']:.1%}; "
+        f"bit-equal {equal}")
+    if not equal:
+        raise AssertionError(f"{label}: the backward's paths differ")
+    bwd = dict(shape=list(head.shape), ms=turns["tiled"], ms_direct=turns["direct"],
+               device_ms=device["tiled"], device_ms_direct=device["direct"], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    return fwd, bwd
+
+
 def phase_dl_kernels():
     """The DL kernels against their plain versions, the tile path against
     the direct one. -> (max |kernel - plain| forward, the same backward,
@@ -893,20 +1001,7 @@ def phase_dl_kernels():
     low, high, width = DL_BIN
     fwd_err = bwd_err = 0.0
     fwd_cases, bwd_cases = {}, {}
-
-    def plain(x, loc, logscale):
-        return discretized_logistic_log_prob(x, loc, logscale, low=low, high=high,
-                                             interval_width=width)
-
-    def forward_bound(x, loc, logscale, out, counts):
-        calls = cascade_transcendentals(counts)
-        return bound(distinct_bytes(x, loc, logscale, out),
-                     sum(DL_FWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
-
-    def backward_bound(x, loc, logscale, g, grads, counts):
-        calls = cascade_transcendentals(counts, backward=True)
-        return bound(distinct_bytes(x, loc, logscale, g, *grads),
-                     sum(DL_BWD_OPS[b] * n for b, n in counts.items()), calls) + (calls,)
+    plain, forward_bound, backward_bound = dl_plain, dl_forward_bound, dl_backward_bound
 
     for k in (5, 100):
         for layout in DL_LAYOUTS:
@@ -1087,51 +1182,13 @@ def phase_dl_kernels():
     # hand the kernels): both paths on the device in turns, forward at k = 5
     # and 100, backward at k = 5
     for k in (5, 100):
-        x, head = model03_head(k)
-        loc, logscale = torch.chunk(head, 2, dim=-1)
-        if dl_kernel.forward_path(x, loc, logscale) != "tiled":
-            raise AssertionError(f"model03 head k={k}: not on the tile path")
-        counts = branch_counts(x, loc, logscale, low, high, width)
-        reps = 20 if k == 5 else 10
-        with torch.inference_mode():
-            got = dl_fwd(x, loc, logscale)
-            equal = bool(torch.equal(got, dl_fwd(x, loc, logscale, "direct")))
-            fns = {"tiled": lambda: dl_fwd(x, loc, logscale),
-                   "direct": lambda: dl_fwd(x, loc, logscale, "direct")}
-            turns = in_turns(fns, TURNS, reps)
-            device = in_turns(fns, TURNS, reps, graph_ms)
-        bound_ms, bound_by, by, calls = forward_bound(x, loc, logscale, got, counts)
-        say(f"model03 head k={k} forward (tiled path): "
-            f"{turns['tiled']:.4f} ms, direct {turns['direct']:.4f} ms in turns; on the "
-            f"device {device['tiled']:.4f} ms, direct {device['direct']:.4f}; bound "
-            f"{bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}), share "
-            f"{bound_ms / device['tiled']:.1%}; bit-equal {equal}; branches {counts}")
-        if not equal:
-            raise AssertionError(f"model03 head k={k}: the forward's paths differ")
-        fwd_cases[f"model03 head k={k}"] = dict(
-            ms=turns["tiled"], ms_direct=turns["direct"], device_ms=device["tiled"],
-            device_ms_direct=device["direct"], bound_ms=bound_ms, bound_by=bound_by)
-        if k == 5:
-            g = torch.randn((k, BATCH, 1, 1, 1), generator=gen, device="cuda").expand(loc.shape)
-            d_got = dl_bwd(x, loc, logscale, g)
-            equal = all(torch.equal(a, b) for a, b in zip(d_got, dl_bwd(x, loc, logscale, g,
-                                                                          "direct")))
-            fns = {"tiled": lambda: dl_bwd(x, loc, logscale, g),
-                   "direct": lambda: dl_bwd(x, loc, logscale, g, "direct")}
-            turns = in_turns(fns, TURNS, reps)
-            device = in_turns(fns, TURNS, reps, graph_ms)
-            bound_ms, bound_by, by, calls = backward_bound(x, loc, logscale, g, d_got, counts)
-            say(f"model03 head k={k} backward (tiled path): {turns['tiled']:.4f} ms, direct "
-                f"{turns['direct']:.4f} ms in turns; on the device {device['tiled']:.4f} ms, "
-                f"direct {device['direct']:.4f}; bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{bounds_text(by)}), share {bound_ms / device['tiled']:.1%}; bit-equal {equal}")
-            if not equal:
-                raise AssertionError(f"model03 head k={k}: the backward's paths differ")
-            bwd_cases[f"model03 head k={k}"] = dict(
-                ms=turns["tiled"], ms_direct=turns["direct"], device_ms=device["tiled"],
-                device_ms_direct=device["direct"], bound_ms=bound_ms, bound_by=bound_by)
-            del g, d_got
-        del x, head, loc, logscale, got
+        x, head = model_head("model03", k)
+        fwd, bwd = head_cases(f"model03 head k={k}", x, head, gen, backward=k == 5,
+                              reps=20 if k == 5 else 10)
+        fwd_cases[f"model03 head k={k}"] = fwd
+        if bwd is not None:
+            bwd_cases[f"model03 head k={k}"] = bwd
+        del x, head
     torch.cuda.empty_cache()
 
     # off the model's shapes: a ragged last tile (k = 3, B = 7, 31 x 31:
@@ -1508,15 +1565,28 @@ def seeded_model(cfg):
     return build_model(cfg, torch.Generator().manual_seed(SEED)).eval()
 
 
-def images(n: int) -> np.ndarray:
-    return np.random.default_rng(SEED).integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+def open_gates(model):
+    """Every rezero gate of a ladder set to a seeded value in [0.5, 1.5]: at
+    initialisation they are 0, which leaves every conv inside a residual
+    branch without gradient. Other models have none."""
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(0.5 + float(torch.rand((), generator=gen)))
+    return model
+
+
+def images(n: int, shape=(32, 32, 3)) -> np.ndarray:
+    return np.random.default_rng(SEED).integers(0, 256, (n,) + tuple(shape), dtype=np.uint8)
 
 
 def seeded_noise(cfg):
-    """One standard-normal tensor ``[k, B, n_i]`` per stochastic layer."""
+    """One standard-normal tensor ``[k, B] + shape_i`` per stochastic layer
+    (``[k, B, n_i]``; a ladder's ``[k, B, h_i, w_i, c_i]``), bottom up."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    return [torch.randn((cfg.n_samples, BATCH, n), generator=gen, device="cuda")
-            for n in cfg.latents()]
+    return [torch.randn((cfg.n_samples, BATCH) + shape, generator=gen, device="cuda")
+            for shape in latent_shapes(cfg)]
 
 
 def phase_bound(name: str) -> None:
@@ -1543,13 +1613,20 @@ def phase_bound(name: str) -> None:
         raise AssertionError(f"{name} bound: kernel launched {n_k} times, plain path {n_p}")
 
 
-def phase_train_step_check(name: str) -> None:
-    """One f32 train step of the model, through the kernels and through the
-    plain version, from one state, batch and noise: the loss and each
-    parameter's gradient, then the whole step."""
+def phase_train_step_check(name: str, compute_dtype: str = None) -> None:
+    """One train step of the model in its config (float32; biladder_celeba
+    bf16) or in ``compute_dtype``, through the kernels and through the plain
+    version, from one state, batch and noise: the loss and each parameter's
+    gradient, then the whole step. A ladder's rezero gates are opened first
+    (``open_gates``), so that every leaf has a gradient to compare, and its
+    train step does not flip the images (biladder_celeba's experiment
+    would), so that the step sees the batch the loss saw."""
     base = MODELS[name]
+    if compute_dtype is not None:
+        base = dataclasses.replace(base, compute_dtype=compute_dtype)
+    grad_rtol = GRAD_RTOL_BF16 if base.compute_dtype == "bfloat16" else GRAD_RTOL
     kernels = kernels_of(name)
-    batch = torch.as_tensor(images(BATCH), device="cuda")
+    batch = torch.as_tensor(images(BATCH, base.image_shape), device="cuda")
     x = batch.float() / 255.0
     eps = seeded_noise(base)
     deterministic = torch.backends.cudnn.deterministic
@@ -1557,7 +1634,8 @@ def phase_train_step_check(name: str) -> None:
     results = {}
     for which, use in (("kernel", None), ("plain", False)):
         cfg = experiment(name, model=dataclasses.replace(base, use_pallas=use))
-        model = seeded_model(cfg.model)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, augment_flip=False))
+        model = open_gates(seeded_model(cfg.model))
         state = create_train_state(model, cfg.train)
         before = kernels.launches, kernels.backward_launches
         loss_fn = training_loss_fn(model, cfg, prior_for(cfg.model, "cuda"), x,
@@ -1573,17 +1651,18 @@ def phase_train_step_check(name: str) -> None:
     torch.backends.cudnn.deterministic = deterministic
     loss_k, grads_k, step_k, fwd_k, bwd_k = results["kernel"]
     loss_p, grads_p, step_p, fwd_p, bwd_p = results["plain"]
-    rel = {leaf: float((grads_k[leaf] - grads_p[leaf]).norm() / grads_p[leaf].norm())
-           for leaf in grads_p}
+    rel = {leaf: float((grads_k[leaf] - grads_p[leaf]).norm()
+                       / grads_p[leaf].norm().clamp_min(1e-30)) for leaf in grads_p}
     leaf = max(rel, key=rel.get)
-    say(f"{name} f32 train step k={base.n_samples} B={BATCH}: loss kernel {loss_k:.6f}, "
+    say(f"{name} {base.compute_dtype} train step k={base.n_samples} B={BATCH}: loss kernel "
+        f"{loss_k:.6f}, "
         f"plain {loss_p:.6f} (step {step_k:.6f} / {step_p:.6f}); max norm-relative gradient "
         f"diff {rel[leaf]:.3e} ({leaf}, of {len(rel)} leaves); kernel launches forward "
         f"{fwd_k}/{fwd_p}, backward {bwd_k}/{bwd_p}")
     for a, b in ((loss_k, loss_p), (step_k, step_p), (loss_k, step_k)):
         if not np.isfinite(a) or abs(a - b) > SUM_RTOL * abs(b):
             raise AssertionError(f"{name} train step: kernel and plain losses disagree")
-    if not np.isfinite(rel[leaf]) or rel[leaf] > GRAD_RTOL:
+    if not np.isfinite(rel[leaf]) or rel[leaf] > grad_rtol:
         raise AssertionError(f"{name} train step: {leaf} gradients differ beyond tolerance")
     if fwd_k < 1 or bwd_k < 1 or fwd_p != 0 or bwd_p != 0:
         raise AssertionError(f"{name} train step: kernels launched {fwd_k}+{bwd_k} times, "
@@ -1593,8 +1672,11 @@ def phase_train_step_check(name: str) -> None:
 def configs_of(name: str, plain: bool) -> dict:
     """The float32 parity config, the bfloat16 config (bf16 conv body; the
     MoDL's head -> likelihood boundary in bf16 too, the DL head stays
-    float32) and, for training, float32 through the plain version."""
+    float32) and, for training, float32 through the plain version; a ladder
+    its own config alone, through the kernels."""
     base = MODELS[name]
+    if name in LADDERS:
+        return {"bf16" if base.compute_dtype == "bfloat16" else "f32": base}
     io_dtype = "bfloat16" if base.likelihood == "mdl" else None
     configs = {
         "f32": base,
@@ -1605,16 +1687,16 @@ def configs_of(name: str, plain: bool) -> dict:
     return configs
 
 
-def train_pool() -> torch.Tensor:
+def train_pool(shape=(32, 32, 3)) -> torch.Tensor:
     """One call's worth of seeded synthetic uint8 batches, on the card."""
     rng = np.random.default_rng(SEED)
-    return torch.as_tensor(rng.integers(0, 256, (TRAIN_STEPS_PER_CALL, BATCH, 32, 32, 3),
+    return torch.as_tensor(rng.integers(0, 256, (TRAIN_STEPS_PER_CALL, BATCH) + tuple(shape),
                                         dtype=np.uint8), device="cuda")
 
 
 def phase_train(name: str, smi: str):
     """The main path of training. -> {config: imgs/s}."""
-    pool = train_pool()
+    pool = train_pool(MODELS[name].image_shape)
     rates = {}
     for which, mcfg in configs_of(name, plain=True).items():
         cfg = experiment(name, model=mcfg)
@@ -1675,7 +1757,7 @@ def device_profile(fn, reps: int):
 def phase_profile(name: str) -> None:
     """Device time by kernel class over 5 train steps of each config, and the
     likelihood kernels' device time per launch."""
-    pool = train_pool()
+    pool = train_pool(MODELS[name].image_shape)
     for which, mcfg in configs_of(name, plain=False).items():
         cfg = experiment(name, model=mcfg)
         model = seeded_model(mcfg)
@@ -1702,41 +1784,42 @@ def phase_profile(name: str) -> None:
 
 def phase_eval(name: str, smi: str):
     """The main path of evaluation. -> {config: imgs/s}."""
-    batch = images(BATCH)
-    rates = {}
     base = MODELS[name]
+    n = EVAL_BATCH.get(name, BATCH)
+    batch = images(n, base.image_shape)
+    rates = {}
     for which, cfg in configs_of(name, plain=False).items():
         model = seeded_model(cfg)
         ecfg = experiment(name, model=cfg)
         llh, per_image, metrics = evaluate_llh(model, ecfg, batch, n_samples=5000,
-                                               k_chunk=100, batch_size=BATCH, seed=SEED)
+                                               k_chunk=100, batch_size=n, seed=SEED)
         torch.cuda.reset_peak_memory_stats()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         llh2, _, metrics2 = evaluate_llh(model, ecfg, batch, n_samples=5000, k_chunk=100,
-                                         batch_size=BATCH, seed=SEED + 1)
+                                         batch_size=n, seed=SEED + 1)
         end.record()
         end.synchronize()
         seconds = start.elapsed_time(end) / 1e3
-        rates[which] = BATCH / seconds
+        rates[which] = n / seconds
         peak = torch.cuda.max_memory_allocated() / 2**30
         say(f"{name} 5000-IS {which}: llh {llh:.4f} nats, bpd {metrics['bpd']:.6f} "
             f"(seed {SEED + 1}: llh {llh2:.4f}); {rates[which]:.2f} imgs/s "
-            f"({seconds:.3f} s per batch of {BATCH}, peak {peak:.1f} GiB) on {smi}")
+            f"({seconds:.3f} s per batch of {n}, peak {peak:.1f} GiB) on {smi}")
         values = [llh, metrics["bpd"], llh2, metrics2["bpd"]]
         if not (np.isfinite(values).all() and np.isfinite(per_image).all()):
             raise AssertionError(f"{name} 5000-IS {which}: non-finite result")
-        if per_image.shape != (BATCH,):
+        if per_image.shape != (n,):
             raise AssertionError(f"{name} 5000-IS {which}: per-image shape {per_image.shape}")
 
     # the same 200-sample evaluation through the kernel and the plain version
     plain_cfg = dataclasses.replace(base, use_pallas=False)
     got = evaluate_llh(seeded_model(base), experiment(name), batch, n_samples=200,
-                       k_chunk=100, batch_size=BATCH, seed=SEED)[1]
+                       k_chunk=100, batch_size=n, seed=SEED)[1]
     want = evaluate_llh(seeded_model(plain_cfg), experiment(name, model=plain_cfg),
-                        batch, n_samples=200, k_chunk=100, batch_size=BATCH, seed=SEED)[1]
+                        batch, n_samples=200, k_chunk=100, batch_size=n, seed=SEED)[1]
     rel = float(np.max(np.abs(got - want) / np.abs(want)))
-    say(f"{name} 200-IS f32 kernel vs plain: max rel per-image diff {rel:.3e}")
+    say(f"{name} 200-IS {base.compute_dtype} kernel vs plain: max rel per-image diff {rel:.3e}")
     if rel > SUM_RTOL:
         raise AssertionError(f"{name} evaluator: kernel and plain version disagree")
     return rates
@@ -1801,29 +1884,73 @@ def main_path(name: str, path: str, smi: str) -> dict:
     return counts
 
 
-def main() -> None:
-    smi = phase_device()
-    phase_build()
-    layouts = phase_layout()
-    k6_err = phase_sfu_check()
-    by_path = {"roofline": roofline_path(smi)}
-    k6_case = k6_record(k6_err)
-    max_err, fwd_cases = phase_kernel_vs_plain()
-    bwd_err, bwd_excess, bwd_cases = phase_backward()
-    dl_err, dl_bwd_err, dl_cases, dl_bwd_cases = phase_dl_kernels()
-    io_cases = phase_io_probes()
-    for name in ("model05", "model03"):
-        phase_bound(name)
-    for name in ("model05", "model03", "model04", "model06"):
+def phase_ladders(smi: str):
+    """The ladder families, each at full width in its own config
+    (biladder_celeba's body bf16), on seeded uint8 images of its shape: one
+    train step through the kernels against the plain version (for
+    biladder_celeba also with a float32 body, held to GRAD_RTOL); the main paths
+    of evaluation (5000 samples, k-chunks of 100, on a batch of
+    ``EVAL_BATCH``) and of training (batch 128, k = 5, 10 steps a call), each
+    with every count set to 0 just before it and read just after, every DL
+    launch on the tile path; the profile of 5 train steps; and the DL pair
+    on each ladder's own head output at the train shape (forward and
+    backward) and the eval chunk's (forward). -> ({path: counts}, {case:
+    forward record}, {case: backward record})."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    by_path, fwd_cases, bwd_cases = {}, {}, {}
+    for name in LADDERS:
         phase_train_step_check(name)
-    phase_small_models(smi)
+        if MODELS[name].compute_dtype != "float32":  # the same model, float32 body
+            phase_train_step_check(name, "float32")
+        for path in ("eval", "train"):
+            by_path[f"{name} {path}"] = main_path(name, path, smi)
+        phase_profile(name)
+        for k, batch in ((5, BATCH), (100, EVAL_BATCH.get(name, BATCH))):
+            x, head = model_head(name, k, batch)
+            label = f"{name} head k={k} B={batch}"
+            fwd_cases[label], bwd = head_cases(label, x, head, gen, backward=k == 5,
+                                               reps=20 if k == 5 else 10)
+            if bwd is not None:
+                bwd_cases[label] = bwd
+            del x, head
+        torch.cuda.empty_cache()
+    return by_path, fwd_cases, bwd_cases
 
-    by_path.update({f"{name} {path}": main_path(name, path, smi)
-                    for name in ("model05", "model03") for path in ("eval", "train")})
-    structure_counts, isolate_ms = structure_path(smi)
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, printing the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main() -> None:
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    layouts = timed("layout", phase_layout)
+    k6_err = timed("probe kernel", phase_sfu_check)
+    by_path = {"roofline": timed("roofline", roofline_path, smi)}
+    k6_case = k6_record(k6_err)
+    max_err, fwd_cases = timed("MoDL forward", phase_kernel_vs_plain)
+    bwd_err, bwd_excess, bwd_cases = timed("MoDL backward", phase_backward)
+    dl_err, dl_bwd_err, dl_cases, dl_bwd_cases = timed("DL kernels", phase_dl_kernels)
+    io_cases = timed("memory-path probes", phase_io_probes)
+    for name in ("model05", "model03"):
+        timed(f"{name} bound", phase_bound, name)
+    for name in ("model05", "model03", "model04", "model06"):
+        timed(f"{name} train step", phase_train_step_check, name)
+    timed("model01 and model02", phase_small_models, smi)
+
+    for name in ("model05", "model03"):
+        for path in ("eval", "train"):
+            by_path[f"{name} {path}"] = timed(f"{name} {path}", main_path, name, path, smi)
+    structure_counts, isolate_ms = timed("measurement path", structure_path, smi)
     by_path.update(structure_counts)
     for name in ("model05", "model03"):
-        phase_profile(name)
+        timed(f"{name} profile", phase_profile, name)
+    ladder_counts, ladder_fwd, ladder_bwd = timed("ladders", phase_ladders, smi)
+    by_path.update(ladder_counts)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -1881,14 +2008,16 @@ def main() -> None:
                launches_by_memory_path=dl_paths["forward"],
                model_head_device_ms=dl_cases["model03 head k=100"]["device_ms"],
                model_head_device_ms_direct=dl_cases["model03 head k=100"]["device_ms_direct"],
-               model_head_bound_ms=dl_cases["model03 head k=100"]["bound_ms"]),
+               model_head_bound_ms=dl_cases["model03 head k=100"]["bound_ms"],
+               ladder_heads=ladder_fwd),
         record("dl_log_prob_backward", DL_SOURCE, REPLACES_DL, dl_bwd_err,
                dl_bwd_cases[f"K5 f32 k=5 B={BATCH} {dl}"],
                replaces_note=REPLACES_DL_BACKWARD_NOTE,
                launches_by_memory_path=dl_paths["backward"],
                model_head_device_ms=dl_bwd_cases["model03 head k=5"]["device_ms"],
                model_head_device_ms_direct=dl_bwd_cases["model03 head k=5"]["device_ms_direct"],
-               model_head_bound_ms=dl_bwd_cases["model03 head k=5"]["bound_ms"]),
+               model_head_bound_ms=dl_bwd_cases["model03 head k=5"]["bound_ms"],
+               ladder_heads=ladder_bwd),
         record("sfu_probe", SFU_SOURCE, REPLACES_K6, k6_case["max_abs_err"], k6_case),
         sum_record("channel_sum[channel_minor,direct]", REPLACES_P1, "P1 channel_minor direct",
                    "direct", "library sum(-1)"),

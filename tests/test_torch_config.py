@@ -11,8 +11,7 @@ from vae_mdl_tpu_torch.models import zoo
 
 torch.set_num_threads(1)
 
-_JAX_MODEL_NAMES = sorted(name for name, m in jzoo.MODELS.items()
-                          if isinstance(m, jconfig.ModelConfig))
+_JAX_MODEL_NAMES = sorted(jzoo.MODELS)
 
 
 def _fields(cls):

@@ -3,7 +3,9 @@ backward against their plain versions, their input checks, their launch
 counts, the two memory paths of each MoDL kernel against each other bit for
 bit, and the gradient's layout; the probe kernel, the channel sum and the
 null-body MoDL kernels against theirs; the default device of ``build_model``
-and the timing harness; and the evaluator's Bernoulli binarisation.
+and the timing harness; the evaluator's Bernoulli binarisation; and one
+biladder_celeba loss and gradient through the DL kernels against the plain
+version.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -35,7 +37,8 @@ from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
 from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
-from vae_mdl_tpu_torch.models.vae import build_model
+from vae_mdl_tpu_torch.models.objective import training_loss_fn
+from vae_mdl_tpu_torch.models.vae import build_model, latent_shapes, prior_for
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.utils.timing import setup_scanned_step
@@ -504,9 +507,11 @@ def test_dl_kernels_refuse_what_they_do_not_take(cuda, bad):
 
 # the discretized-logistic kernels' two memory paths: (k, B, H, W) of the
 # train shape, the eval chunk, a ragged one (20,181 pixels, no multiple of a
-# tile) and 384 pixels (three whole tiles of the backward's 128, a whole and
-# a ragged one of the forward's 256)
-_DL_TILE_SHAPES = [(5, 128, 32, 32), (100, 128, 32, 32), (3, 7, 31, 31), (1, 3, 8, 16)]
+# tile), 384 pixels (three whole tiles of the backward's 128, a whole and
+# a ragged one of the forward's 256), and biladder_celeba's train shape and
+# eval chunk
+_DL_TILE_SHAPES = [(5, 128, 32, 32), (100, 128, 32, 32), (3, 7, 31, 31), (1, 3, 8, 16),
+                   (5, 128, 64, 64), (100, 32, 64, 64)]
 _DL_BIN = (0.0, 1.0, 1.0 / 255.0)
 
 
@@ -653,6 +658,55 @@ def test_model03_takes_the_dl_tile_path_in_both_directions(cuda):
     pxz.reduced_log_prob(x).sum().backward()
     assert dl_kernel.launches_by_path == {"tiled": 1, "direct": 0}
     assert dl_kernel.backward_launches_by_path == {"tiled": 1, "direct": 0}
+
+
+@pytest.mark.parametrize("compute_dtype,grad_rtol", [("bfloat16", 8e-3), ("float32", 2e-4)])
+def test_biladder_celeba_train_step_through_the_kernels_matches_the_plain_version(
+        cuda, compute_dtype, grad_rtol):
+    """One biladder_celeba loss and gradient (64 x 64, k = 5, 16 images,
+    every rezero gate opened to a seeded value so that every leaf has a
+    gradient) through the DL kernels, both on the tile path, against the
+    same through the plain version: the loss within rtol 1e-5, each gradient
+    leaf in norm within chip_smoke.py's tolerance, 2e-4 with a float32 body
+    and 8e-3 (two bf16 ulps, ``GRAD_RTOL_BF16``) with the config's bf16 one,
+    where the head's float32 gradients round to bf16 on their way into the
+    body's backward (measured 1.1e-3 on stem.weight)."""
+    base = dataclasses.replace(MODELS["biladder_celeba"], compute_dtype=compute_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 256, (16, 64, 64, 3), generator=gen, device=cuda).float() / 255.0
+    eps = [torch.randn((5, 16) + shape, generator=gen, device=cuda)
+           for shape in latent_shapes(base)]
+    # the same conv algorithms in both runs, and float32 convolutions in a
+    # float32 body (cuDNN's default is TF32)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    results = {}
+    try:
+        for use in (None, False):
+            cfg = experiment("biladder_celeba", model=dataclasses.replace(base, use_pallas=use))
+            model = build_model(cfg.model, torch.Generator().manual_seed(0))
+            gates = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith(".gate"):
+                        p.fill_(0.5 + float(torch.rand((), generator=gates)))
+            for counts in (dl_kernel.launches_by_path, dl_kernel.backward_launches_by_path):
+                counts.update(dict.fromkeys(dl_kernel.PATHS, 0))
+            params = dict(model.named_parameters())
+            loss, _ = training_loss_fn(model, cfg, prior_for(cfg.model, cuda), x, 5,
+                                       eps=eps)(params)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            results[use] = (float(loss.detach()), grads, dict(dl_kernel.launches_by_path),
+                            dict(dl_kernel.backward_launches_by_path))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = flags
+    (loss_k, grads_k, fwd_k, bwd_k), (loss_p, grads_p, fwd_p, bwd_p) = results[None], results[False]
+    assert fwd_k == bwd_k == {"tiled": 1, "direct": 0}
+    assert fwd_p == bwd_p == {"tiled": 0, "direct": 0}
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for name, want in grads_p.items():
+        assert want.norm() > 0, name
+        assert (grads_k[name] - want).norm() <= grad_rtol * want.norm(), name
 
 
 def test_build_model_lands_on_the_card_by_default(cuda):

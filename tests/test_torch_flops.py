@@ -45,6 +45,22 @@ def test_forward_and_train_step_flops_equal_jax(name):
     assert flops.train_step_flops(MODELS[name], 128) == 3.0 * flops.forward_flops(MODELS[name], 128)
 
 
+@pytest.mark.parametrize("name,over", [
+    ("ladder_svhn", {}), ("biladder_svhn", {}), ("biladder_celeba", {}),
+    ("biladder_svhn", dict(split_merge=False)), ("biladder_celeba", dict(split_merge=False))])
+def test_ladder_flops_equal_jax(name, over):
+    """``ladder_flops`` and ``biladder_flops`` (through ``forward_flops``)
+    at the zoo configs, also at 5000 samples and with the fused merge conv."""
+    cfg = dataclasses.replace(MODELS[name], **over)
+    jcfg = dataclasses.replace(JAX_MODELS[name], **over)
+    for batch, n_samples in ((1, None), (128, None), (32, 5000)):
+        assert flops.forward_flops(cfg, batch, n_samples) == \
+            jflops.forward_flops(jcfg, batch, n_samples)
+    assert flops.train_step_flops(cfg, 128) == jflops.train_step_flops(jcfg, 128)
+    assert (flops.ladder_flops if name == "ladder_svhn" else flops.biladder_flops)(
+        cfg, 4) == flops.forward_flops(cfg, 4)
+
+
 @pytest.mark.parametrize("likelihood", ["dl", "gaussian", "bernoulli", "pmdl"])
 def test_unfolded_head_is_counted_as_in_jax(likelihood):
     """model05's stack ends in 50 channels; with another likelihood the head

@@ -7,10 +7,11 @@ from ``vae_mdl_tpu/evaluation/harness.py`` for one process on one device:
   shape and its padding is dropped;
 - the k = 5000 samples are streamed in k-chunks folded into a streaming
   logmeanexp (``ops.math``); ``[5000, B, H, W, C]`` never exists;
-- the chunk loop is a Python loop under ``torch.inference_mode()``;
-  q(z_1 | x) is computed once per batch and reused by every chunk (the JAX
-  version recomputes it per chunk; the numbers are the same), and the upper
-  stochastic layers are sampled per chunk from it;
+- the chunk loop is a Python loop under ``torch.inference_mode()``; for
+  the VAE family q(z_1 | x) is computed once per batch and reused by every
+  chunk (the JAX version recomputes it per chunk; the numbers are the same),
+  and the upper stochastic layers are sampled per chunk from it; the ladder
+  families run their whole forward pass per chunk, as the JAX version does;
 - each batch draws from its own generator, seeded from ``(seed, batch
   index)``, so a batch's result does not depend on the batches before it;
 - a Bernoulli model whose data is binarised dynamically
@@ -33,7 +34,7 @@ import torch
 from vae_mdl_tpu_torch.config import ExperimentConfig
 from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.models.objective import log_weights
-from vae_mdl_tpu_torch.models.vae import prior_for
+from vae_mdl_tpu_torch.models.vae import VAE, prior_for
 from vae_mdl_tpu_torch.ops.math import (
     streaming_logmeanexp_finalize,
     streaming_logmeanexp_init,
@@ -56,8 +57,10 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
 
     ``batch``: uint8 images (scaled by 1/255) or floats in [0, 1],
     ``[B, H, W, C]``, on the model's device. The standard-normal draws come
-    from ``generator``, or from ``eps`` ``[n_chunks, k_chunk, B, n_latent]``
-    (z_1's noise, or a sequence with one such tensor per stochastic layer).
+    from ``generator``, or from ``eps`` ``[n_chunks, k_chunk, B] + shape``
+    (z_1's noise, or a sequence with one such tensor per stochastic layer,
+    bottom up; ``shape`` is ``models.vae.latent_shapes``': ``(n_latent,)``,
+    or ``(h, w, c)`` for a ladder).
     Where the model is a Bernoulli on dynamically binarised data, the batch
     is binarised once, before any sample noise: ``x = (u < x)`` with ``u``
     uniform on [0, 1) ``[B, H, W, C]``, drawn from ``generator`` or injected
@@ -65,6 +68,9 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
     """
     k_chunk, n_chunks = effective_chunks(n_samples, k_chunk)
     binarize_input = cfg.model.likelihood == "bernoulli" and cfg.data.dynamic_binarization
+    # the VAE family computes q(z_1 | x) once a batch; the ladders have no
+    # such split
+    once_a_batch = isinstance(model, VAE)
 
     def batch_llh(batch: torch.Tensor, generator: Optional[torch.Generator] = None,
                   eps=None, u: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -76,14 +82,17 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
                 # one fixed draw per evaluation, the same in every k-chunk
                 x = binarize(generator, x) if u is None else (u < x).float()
             prior = prior_for(cfg.model, x.device)
-            q = model.encoder(x)
+            q = model.encoder(x) if once_a_batch else None
             state = streaming_logmeanexp_init((x.shape[0],), device=x.device)
             if isinstance(eps, torch.Tensor):
                 eps = (eps,)
             for j in range(n_chunks):
                 noise = None if eps is None else [layer[j] for layer in eps]
-                Qs = model.sample_posterior(q, k_chunk, generator, noise)
-                Ps, pxz = model.decode_down(Qs)
+                if once_a_batch:
+                    Qs = model.sample_posterior(q, k_chunk, generator, noise)
+                    Ps, pxz = model.decode_down(Qs)
+                else:
+                    Qs, Ps, pxz = model(x, k_chunk, generator, noise)
                 log_w = log_weights(prior, Qs, Ps, pxz, x)  # [k_chunk, B]
                 state = streaming_logmeanexp_update(state, log_w, dim=0)
             return streaming_logmeanexp_finalize(state)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
+from vae_mdl_tpu_torch.models.vae import VAE, latent_shapes
 from vae_mdl_tpu_torch.models.losses import (
     Metrics,
     _bits_per_dim,
@@ -207,21 +208,25 @@ def training_loss_fn(model, cfg, prior: Normal, x: torch.Tensor, k: int,
     """Build ``loss_fn(params) -> (loss, metrics)`` for one train step.
 
     The standard-normal noise is drawn once from ``generator``, one tensor
-    ``[k, B, n_i]`` per stochastic layer (or injected as ``eps``: z_1's
-    tensor, or a sequence with one per layer), so every forward pass of one
-    step, as the DReG surrogates need, sees the same latents. For "iwae" and
-    "elbo" the loss is the plain forward and ``compute_loss``. For
-    "iwae_dreg" the loss value is the IWAE bound and its gradient the DReG
-    estimator, assembled from two forward passes with complementary halves
-    detached.
+    ``[k, B] + shape_i`` per stochastic layer, bottom up as the ``Qs`` are
+    (``models.vae.latent_shapes``: ``[k, B, n_i]`` for the VAE family,
+    ``[k, B, h_i, w_i, c_i]`` for the ladders), or injected as ``eps`` (z_1's
+    tensor, or a sequence with one per layer in that order), so every
+    forward pass of one step, as the DReG surrogates need, sees the same
+    latents. For "iwae" and "elbo" the loss is the plain forward and
+    ``compute_loss``. For "iwae_dreg" the loss value is the IWAE bound and
+    its gradient the DReG estimator, assembled from two forward passes with
+    complementary halves detached; it is defined for the VAE family only.
+    ``objective`` and ``free_bits`` default to "iwae" and 0 where the model's
+    config has no such field (the ladders').
     """
-    objective = cfg.model.objective
-    free_bits = cfg.model.free_bits
+    objective = getattr(cfg.model, "objective", "iwae")
+    free_bits = getattr(cfg.model, "free_bits", 0.0)
     _check_free_bits(objective, free_bits)
     eps = [eps] if isinstance(eps, torch.Tensor) else list(eps or ())
     # the layers given no noise draw theirs, bottom up
-    eps += [torch.randn((k, x.shape[0], n), generator=generator, device=x.device)
-            for n in cfg.model.latents()[len(eps):]]
+    eps += [torch.randn((k, x.shape[0]) + shape, generator=generator, device=x.device)
+            for shape in latent_shapes(cfg.model)[len(eps):]]
 
     if objective != "iwae_dreg":
         def loss_fn(params: Params):
@@ -229,6 +234,12 @@ def training_loss_fn(model, cfg, prior: Normal, x: torch.Tensor, k: int,
             return compute_loss(prior, Qs, Ps, pxz, x, beta=beta, objective=objective,
                                 free_bits=free_bits)
         return loss_fn
+
+    if not isinstance(model, VAE):
+        # the ladders share top-down parameters between inference and
+        # generation, where the estimator's parameter partition is not defined
+        raise ValueError("objective='iwae_dreg' is implemented for the VAE family "
+                         f"(ModelConfig); got {type(model).__name__}.")
 
     def loss_fn(params: Params):
         # generative half: the IWAE surrogate sum_k sg(w~_k) log w_k

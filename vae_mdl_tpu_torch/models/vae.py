@@ -2,7 +2,9 @@
 
 Port of ``VAE``, ``prior_for`` and ``build_model`` from
 ``vae_mdl_tpu/models/vae.py`` for model01 - model06 (MLP and conv encoders and
-decoders, every likelihood head):
+decoders, every likelihood head); ``build_model`` and ``prior_for`` also
+take the ladder families' configs (``models/ladder.py``,
+``models/bidirectional.py``):
 
 - one stochastic layer: encoder -> q(z|x), k importance samples as a leading
   axis, decoder -> p(x|z) with the configured likelihood head;
@@ -27,7 +29,7 @@ from torch import nn
 
 from vae_mdl_tpu_torch.config import ModelConfig
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
-from vae_mdl_tpu_torch.nn.blocks import DTYPES, MLPBlock
+from vae_mdl_tpu_torch.nn.blocks import DTYPES, SPATIAL_AXES, MLPBlock
 from vae_mdl_tpu_torch.nn.decoders import ConvDecoder, MLPDecoder
 from vae_mdl_tpu_torch.nn.encoders import ConvEncoder, ConvSpec, MLPEncoder
 
@@ -43,7 +45,7 @@ def _specs(layers) -> Tuple[ConvSpec, ...]:
     )
 
 
-def _per_layer(eps: Noise, n_layers: int) -> Tuple[Optional[torch.Tensor], ...]:
+def per_layer(eps: Noise, n_layers: int) -> Tuple[Optional[torch.Tensor], ...]:
     """``eps`` as one entry per stochastic layer (None = draw it)."""
     if eps is None:
         return (None,) * n_layers
@@ -119,7 +121,7 @@ class VAE(nn.Module):
         """``encode`` from a given q(z_1 | x), which the evaluator computes
         once per batch. Importance samples are a leading axis on z_1 and ride
         through the upper layers, each sampled once per z_1 sample."""
-        noise = _per_layer(eps, len(self.mlp_encoders) + 1)
+        noise = per_layer(eps, len(self.mlp_encoders) + 1)
         z = q1.sample(generator, (n_samples,), noise=noise[0])
         Qs = [DistributionTuple(q1, z, axes=_LATENT_AXES)]
         for block, layer_noise in zip(self.mlp_encoders, noise[1:]):
@@ -171,16 +173,37 @@ class VAE(nn.Module):
         return Qs, Ps, pxz
 
 
-def prior_for(config: ModelConfig, device=None) -> Normal:
-    """Standard-normal prior over the top latent."""
+def _is_ladder(config) -> bool:
+    """Whether ``config`` is one of the ladder families' (spatial latents)."""
+    return hasattr(config, "top_latent_shape")
+
+
+def latent_shapes(config) -> Tuple[Tuple[int, ...], ...]:
+    """The shape of one sample of each stochastic layer's latent, bottom
+    first: ``(n_i,)`` for the VAE family, ``(h_i, w_i, c_i)`` for the
+    ladders. Injected noise is ``[k, B] + shape`` per layer in this order."""
+    if _is_ladder(config):
+        return config.latent_shapes()
+    return tuple((n,) for n in config.latents())
+
+
+def prior_for(config, device=None) -> Normal:
+    """Standard-normal prior over the top latent: a vector for the VAE
+    family, the spatial top latent ``[h, w, c]`` (event axes (-1, -2, -3))
+    for the ladders."""
+    if _is_ladder(config):
+        shape = config.top_latent_shape()
+        return Normal(torch.zeros(shape, device=device), torch.ones(shape, device=device),
+                      event_axes=SPATIAL_AXES)
     n_top = config.latents()[-1]
     return Normal(torch.zeros(n_top, device=device), torch.ones(n_top, device=device),
                   event_axes=_LATENT_AXES)
 
 
-def build_model(config: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> VAE:
-    """The model for ``config``, float32 parameters on ``device``.
+def build_model(config, generator: Optional[torch.Generator] = None,
+                device=None) -> nn.Module:
+    """The model for ``config`` (a ``ModelConfig``, a ``LadderConfig`` or a
+    ``BiLadderConfig``), float32 parameters on ``device``.
 
     ``device=None`` means the card: it raises when CUDA is not available and
     never carries on on the CPU; pass ``device="cpu"`` for that. The
@@ -188,10 +211,19 @@ def build_model(config: ModelConfig, generator: Optional[torch.Generator] = None
     gives the same weights on either, and then placed. ``create_train_state``,
     the steps and ``evaluate_llh`` follow the model's device.
     """
+    from vae_mdl_tpu_torch.models.bidirectional import BiLadderConfig, BiLadderVAE
+    from vae_mdl_tpu_torch.models.ladder import ConvLadderVAE, LadderConfig
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "build_model places the model on a CUDA device by default and "
                 "torch.cuda.is_available() is False; pass device='cpu' to run on the CPU")
         device = torch.device("cuda")
-    return VAE(config, generator).to(device)
+    if isinstance(config, BiLadderConfig):
+        model = BiLadderVAE(config, generator)
+    elif isinstance(config, LadderConfig):
+        model = ConvLadderVAE(config, generator)
+    else:
+        model = VAE(config, generator)
+    return model.to(device)

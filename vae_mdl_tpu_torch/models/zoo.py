@@ -1,8 +1,9 @@
-"""model01 .. model06 and ``digits`` as named configs.
+"""model01 .. model06, the ladder families' ``ladder_svhn``,
+``biladder_svhn`` and ``biladder_celeba``, and ``digits`` as named configs.
 
 Mirrors ``vae_mdl_tpu/models/zoo.py`` entry for entry (held equal by
-``tests/test_torch_config.py``). The ladder and biladder configs are not
-ported yet.
+``tests/test_torch_config.py``), with ``register_model`` for a user's own
+config.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from vae_mdl_tpu_torch.config import (
     conv,
     deconv,
 )
+from vae_mdl_tpu_torch.models.bidirectional import BILADDER_CELEBA, BILADDER_SVHN
+from vae_mdl_tpu_torch.models.ladder import LADDER_SVHN
 
 # conv trunk shared by models 02/03/05 — relu activations
 _ENC_CONV_RELU = (
@@ -150,7 +153,8 @@ DIGITS = ModelConfig(
 )
 
 MODELS = {m.name: m for m in
-          (MODEL01, MODEL02, MODEL03, MODEL04, MODEL05, MODEL06, DIGITS)}
+          (MODEL01, MODEL02, MODEL03, MODEL04, MODEL05, MODEL06, LADDER_SVHN,
+           BILADDER_SVHN, BILADDER_CELEBA, DIGITS)}
 
 _DATASETS = {
     "model01": "mnist",
@@ -159,6 +163,9 @@ _DATASETS = {
     "model04": "svhn_cropped",
     "model05": "svhn_cropped",
     "model06": "svhn_cropped",
+    "ladder_svhn": "svhn_cropped",
+    "biladder_svhn": "svhn_cropped",
+    "biladder_celeba": "celeba",
     "digits": "digits",
 }
 
@@ -170,8 +177,21 @@ _N_UPDATES = {
     "model04": 100_000,
     "model05": 100_000,
     "model06": 100_000,
+    "ladder_svhn": 100_000,
+    "biladder_svhn": 100_000,
+    "biladder_celeba": 200_000,
     "digits": 20_000,
 }
+
+
+def register_model(model, dataset: str = "svhn_cropped", n_updates: int = 100_000) -> None:
+    """Register a config under ``model.name`` so that :func:`experiment`
+    builds its experiment as it does a zoo entry's. ``model`` is any config
+    ``models.vae.build_model`` takes: a ``ModelConfig``, a ``LadderConfig``
+    or a ``BiLadderConfig``."""
+    MODELS[model.name] = model
+    _DATASETS[model.name] = dataset
+    _N_UPDATES[model.name] = n_updates
 
 
 def experiment(name: str, **overrides) -> ExperimentConfig:

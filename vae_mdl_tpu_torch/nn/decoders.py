@@ -1,8 +1,9 @@
 """Decoder networks: observation model p(x | z) with its likelihood head.
 
 Port of ``resolve_use_pallas``, ``make_observation``, ``head_channels``,
-``MLPDecoder`` and ``ConvDecoder`` (with ``pre_specs``, the GLU stack and the
-standalone ``head`` conv) from ``vae_mdl_tpu/nn/decoders.py``. Likelihood
+``MLPDecoder``, ``ConvDecoder`` (with ``pre_specs``, the GLU stack and the
+standalone ``head`` conv) and ``ladder_observation`` (the ladder families'
+observation decode) from ``vae_mdl_tpu/nn/decoders.py``. Likelihood
 heads: "bernoulli" (model01), "gaussian" (model02), "dl" (model03, model04,
 model06), "mdl" (model05) and "pmdl". All heads emit float32 parameters; the
 body may run in bf16.
@@ -18,11 +19,19 @@ from torch import nn
 from vae_mdl_tpu_torch.distributions import (
     Bernoulli,
     DiscretizedLogistic,
+    DistributionTuple,
     MixtureDiscretizedLogistic,
     Normal,
     PixelMixtureDiscretizedLogistic,
 )
-from vae_mdl_tpu_torch.nn.blocks import DTYPES, Dense, _activation, _Conv3x3, merge_leading
+from vae_mdl_tpu_torch.nn.blocks import (
+    DTYPES,
+    Dense,
+    SameConv,
+    _activation,
+    merge_leading,
+    on_merged,
+)
 from vae_mdl_tpu_torch.nn.encoders import (
     ConvSpec,
     apply_conv_spec,
@@ -82,6 +91,23 @@ def make_observation(out: torch.Tensor, likelihood: str, bound_logstd: bool = Fa
         # log_prob is per pixel, without a channel axis: event axes (-1, -2)
         return PixelMixtureDiscretizedLogistic(out, event_axes=(-1, -2))
     raise ValueError(f"unknown likelihood {likelihood!r}")
+
+
+def ladder_observation(module: nn.Module, z1: torch.Tensor) -> DistributionTuple:
+    """The observation decode of both ladder families: ``module.obs_up``
+    upsamples z_1 ``[..., h, w, c]`` to the image's resolution, the float32
+    head ``module.obs_head`` gives the likelihood's parameters, and
+    ``make_observation`` turns them into p(x | z_1). As the VAE's ``decode``,
+    it attaches no x sample. The head's output reaches the likelihood as a
+    ``[..., H, W, C]`` view of its NCHW result, channels-last memory on a
+    card: for "dl" the two halves of one dense channel-minor tensor, which is
+    what the kernels' tile path takes."""
+    cfg = module.config
+    out = on_merged(lambda h: module.obs_head(module.obs_up.forward_nchw(h).float(),
+                                              torch.float32), z1)
+    pxz = make_observation(out, cfg.likelihood, cfg.bound_logstd, cfg.use_pallas,
+                           getattr(cfg, "likelihood_io_dtype", None))
+    return DistributionTuple(pxz, None, axes=pxz.event_axes)
 
 
 def head_channels(likelihood: str, out_channels: int, n_mix: int) -> int:
@@ -180,7 +206,7 @@ class ConvDecoder(nn.Module):
         if not self.folded_head:
             if conv_specs:
                 features = conv_specs[-1].features
-            self.head = _Conv3x3(features, n_head, generator)
+            self.head = SameConv(features, n_head, generator)
 
     def forward(self, z: torch.Tensor) -> Obs:
         h = self.act(self.Dense_0(z, self.dtype))

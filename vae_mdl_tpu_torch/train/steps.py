@@ -140,10 +140,10 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
     k = cfg.model.n_samples
 
     def step(state: TrainState, batch: torch.Tensor, eps=None):
-        """One update of ``state`` (in place) on ``batch``; ``eps``
-        ``[k, B, n_latent]`` (or a sequence with one tensor per stochastic
-        layer) injects the standard-normal noise in place of the "sample"
-        stream's draw."""
+        """One update of ``state`` (in place) on ``batch``; ``eps``, z_1's
+        ``[k, B, n_latent]`` (``[k, B, h, w, c]`` for a ladder) or a sequence
+        with one tensor per stochastic layer, bottom up, injects the
+        standard-normal noise in place of the "sample" stream's draw."""
         rngs = state.next_rngs("sample", "binarize", "flip", device=batch.device)
         x = preprocess_train(cfg, batch, rngs)
         beta = effective_beta(cfg, state.step)
@@ -214,7 +214,8 @@ def make_eval_step(model, cfg: ExperimentConfig, n_samples: Optional[int] = None
             Qs, Ps, pxz = apply(model, eval_params(cfg.train, state), x, k,
                                 generator=rngs["eval_sample"])
             loss, metrics = compute_loss(prior_for(cfg.model, x.device), Qs, Ps, pxz, x,
-                                         beta=cfg.model.beta, objective=cfg.model.objective,
+                                         beta=cfg.model.beta,
+                                         objective=getattr(cfg.model, "objective", "iwae"),
                                          free_bits=0.0)
             out = _scalarize(metrics)
             out["loss"] = loss

@@ -2,12 +2,14 @@
 
 ``params_from_flax`` turns a Flax variables tree (numpy or jax leaves,
 ``{"params": {"encoder": {"conv_0": {"kernel", "bias"}, ..., "Dense_0": ...},
-"decoder": {...}}}``) into a ``state_dict`` for ``models.vae.VAE``;
-``params_to_flax`` goes back. The port names its layers as Flax does, at
-any depth, so a leaf ``encoder/conv_0/kernel`` becomes
-``encoder.conv_0.weight``, ``decoder/glu_2/Conv_1/kernel``
-``decoder.glu_2.Conv_1.weight`` and ``mlp_encoder_1/Dense_3/bias``
-``mlp_encoder_1.Dense_3.bias``. Per leaf:
+"decoder": {...}}}``) into a ``state_dict`` for ``models.vae.VAE`` or a
+ladder family's model; ``params_to_flax`` goes back. The port names its
+layers as Flax does, at any depth, so a leaf ``encoder/conv_0/kernel``
+becomes ``encoder.conv_0.weight``, ``decoder/glu_2/Conv_1/kernel``
+``decoder.glu_2.Conv_1.weight``, ``mlp_encoder_1/Dense_3/bias``
+``mlp_encoder_1.Dense_3.bias`` and a ladder's
+``enc_0/EncoderBlock_0/ResidualBlock_0/gate``
+``enc_0.EncoderBlock_0.ResidualBlock_0.gate``. Per leaf:
 
 - dense kernels ``[in, out]`` are transposed to ``[out, in]``; the flatten
   and reshape around the dense layers run in NHWC order inside the modules,
@@ -15,7 +17,11 @@ any depth, so a leaf ``encoder/conv_0/kernel`` becomes
 - conv kernels go from HWIO to OIHW;
 - transposed-conv kernels go from HWIO to IOHW and are flipped in both
   spatial axes: Flax correlates the dilated input with the kernel as it is,
-  ``conv_transpose2d`` with the kernel flipped.
+  ``conv_transpose2d`` with the kernel flipped (only the VAE family's
+  decoders have them);
+- a layer without a bias (the biladder's ``conv_h``) has none on either
+  side, and a parameter that is no layer's (the rezero ``gate``, 0-d) is
+  carried as it is.
 
 ``train_state_from_flax`` and ``train_state_to_flax`` carry a whole training
 state across: the params as above, optax Adam's (or Adamax's) ``count``,
@@ -29,7 +35,7 @@ given, not carried.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,11 +44,12 @@ from vae_mdl_tpu_torch.config import ExperimentConfig, ModelConfig
 from vae_mdl_tpu_torch.train.state import TrainState, create_train_state
 
 
-def _is_transposed(cfg: ModelConfig, path) -> bool:
+def _is_transposed(cfg, path) -> bool:
     """Whether the layer at ``path`` (``("decoder", "conv_1")``) is a
     transposed conv: a ``conv_{i}`` or ``pre_{i}`` entry of the encoder's or
-    decoder's specs says so; no other layer is."""
-    if len(path) != 2 or path[0] not in ("encoder", "decoder"):
+    decoder's specs says so; no other layer is, and no ladder's."""
+    if not isinstance(cfg, ModelConfig) or len(path) != 2 or path[0] not in ("encoder",
+                                                                            "decoder"):
         return False
     kind, _, index = path[1].partition("_")
     part = cfg.encoder if path[0] == "encoder" else cfg.decoder
@@ -71,16 +78,19 @@ def kernel_to_flax(weight: np.ndarray, transposed: bool = False) -> np.ndarray:
     return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
 
 
-def params_from_flax(variables, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def params_from_flax(variables, cfg) -> Dict[str, torch.Tensor]:
     """Flax variables (or their ``"params"`` tree) -> torch ``state_dict``."""
     state = {}
 
     def walk(node, path):
-        if "kernel" in node:
-            name = ".".join(path)
+        name = ".".join(path)
+        if not isinstance(node, Mapping):  # a parameter of its own: the gate
+            state[name] = torch.from_numpy(np.array(node))
+        elif "kernel" in node:
             weight = kernel_from_flax(np.asarray(node["kernel"]), _is_transposed(cfg, path))
             state[f"{name}.weight"] = torch.from_numpy(weight)
-            state[f"{name}.bias"] = torch.from_numpy(np.array(node["bias"]))
+            if "bias" in node:
+                state[f"{name}.bias"] = torch.from_numpy(np.array(node["bias"]))
         else:
             for key, child in node.items():
                 walk(child, path + (key,))
@@ -89,7 +99,7 @@ def params_from_flax(variables, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     return state
 
 
-def params_to_flax(state_dict: Dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
+def params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> dict:
     """torch ``state_dict`` -> Flax variables ``{"params": tree}`` of numpy
     float arrays."""
     tree: dict = {}

@@ -4,9 +4,9 @@ Port of ``vae_mdl_tpu/utils/flops.py`` (that module imports no jax, but the
 port shares no code with the JAX package and keeps its own copy; held equal
 by ``tests/test_torch_flops.py``): ``analytic_model_flops``, the closed-form
 forward FLOPs of a conv/mlp VAE config, ``forward_flops``,
-``train_step_flops``, and the per-pixel transcendental census of the MoDL
-kernels. ``ladder_flops`` and ``biladder_flops`` come with the ladder
-configs.
+``train_step_flops``, ``ladder_flops`` and ``biladder_flops`` (the ladder
+families' closed forms, which ``forward_flops`` dispatches to), and the
+per-pixel transcendental census of the MoDL kernels.
 
 Two things read differently here:
 
@@ -36,6 +36,8 @@ from typing import Dict, Optional
 import torch
 
 from vae_mdl_tpu_torch.distributions.mixture import autoregressive_locs, split_mixture_params
+from vae_mdl_tpu_torch.models.bidirectional import BiLadderConfig
+from vae_mdl_tpu_torch.models.ladder import LadderConfig
 from vae_mdl_tpu_torch.nn.decoders import head_channels
 
 # Published dense peaks by part (NVIDIA's data sheets): float32 outside the
@@ -147,8 +149,12 @@ def analytic_model_flops(model_cfg, batch: int = 1) -> float:
 
 
 def forward_flops(model_cfg, batch: int = 1, n_samples: Optional[int] = None) -> float:
-    """Forward FLOPs per batch, at ``n_samples`` importance samples where
-    given."""
+    """Forward FLOPs per batch for any model family's config, at
+    ``n_samples`` importance samples where given."""
+    if isinstance(model_cfg, BiLadderConfig):
+        return biladder_flops(model_cfg, batch, n_samples)
+    if isinstance(model_cfg, LadderConfig):
+        return ladder_flops(model_cfg, batch, n_samples)
     if n_samples is not None:
         model_cfg = dataclasses.replace(model_cfg, n_samples=n_samples)
     return analytic_model_flops(model_cfg, batch)
@@ -157,6 +163,99 @@ def forward_flops(model_cfg, batch: int = 1, n_samples: Optional[int] = None) ->
 def train_step_flops(model_cfg, batch: int) -> float:
     """Forward + backward (2x forward) per optimizer step."""
     return 3.0 * forward_flops(model_cfg, batch)
+
+
+def _residual_block_flops(hw, c_in: int, hidden: int, out: int) -> float:
+    """1x1 -> 3x3 -> 3x3 -> 1x1 bottleneck (and the 1x1 shortcut where the
+    width changes), ``nn.blocks.ResidualBlock``."""
+    fl = _conv_flops(hw, c_in, hidden, 1, 1, False)[0]
+    fl += _conv_flops(hw, hidden, hidden, 3, 1, False)[0]
+    fl += _conv_flops(hw, hidden, hidden, 3, 1, False)[0]
+    fl += _conv_flops(hw, hidden, out, 1, 1, False)[0]
+    if c_in != out:
+        fl += _conv_flops(hw, c_in, out, 1, 1, False)[0]
+    return fl
+
+
+def _scales(cfg):
+    """The resolution of each stage's latent, bottom first."""
+    return [(h, w) for h, w, _ in cfg.latent_shapes()]
+
+
+def _observation_flops(cfg) -> float:
+    """``obs_up`` from z_1 to the image's resolution and the likelihood head."""
+    H, W, C = cfg.image_shape
+    h0, lat0, n0, _ = cfg.stages[0]
+    fl = sum(_residual_block_flops((H, W), lat0 if b == 0 else h0, h0, h0) for b in range(n0))
+    return fl + _conv_flops((H, W), h0, head_channels(cfg.likelihood, C, cfg.n_mix), 3, 1,
+                            False)[0]
+
+
+def ladder_flops(cfg, batch: int = 1, n_samples: Optional[int] = None) -> float:
+    """Closed-form forward FLOPs per batch of a ``LadderConfig``
+    (``models/ladder.py``): the stem and the first stochastic encoder stage
+    run once per image (the sample axis appears at z_1); the upper encoder
+    stages, the top-down p(z_i | z_{i+1}) blocks and the observation decoder
+    once per sample. Pools and resizes are not counted."""
+    H, W, C = cfg.image_shape
+    k = cfg.n_samples if n_samples is None else n_samples
+    stages = cfg.stages
+    res = _scales(cfg)
+    res_in = [(H, W)] + res[:-1]  # the resolution entering stage i's blocks
+
+    def stoch_enc(i: int, c_in: int) -> float:
+        h_w, out, n_b, _ = stages[i]
+        fl = sum(_residual_block_flops(res_in[i], c_in if b == 0 else out, h_w, out)
+                 for b in range(n_b))
+        return fl + _conv_flops(res[i], out, 2 * out, 3, 1, False)[0]
+
+    per_img = _conv_flops((H, W), C, cfg.stem_features, 3, 1, False)[0]
+    per_img += stoch_enc(0, cfg.stem_features)
+    per_sample = sum(stoch_enc(i, stages[i - 1][1]) for i in range(1, len(stages)))
+    for i in range(len(stages) - 1):
+        h_w, out, n_b, _ = stages[i]
+        c_in = stages[i + 1][1]
+        per_sample += sum(_residual_block_flops(res[i], c_in if b == 0 else out, h_w, out)
+                          for b in range(n_b))
+        per_sample += _conv_flops(res[i], out, 2 * out, 3, 1, False)[0]
+    per_sample += _observation_flops(cfg)
+    return batch * (per_img + k * per_sample)
+
+
+def biladder_flops(cfg, batch: int = 1, n_samples: Optional[int] = None) -> float:
+    """Closed-form forward FLOPs per batch of a ``BiLadderConfig``
+    (``models/bidirectional.py``): the bottom-up path and the top posterior
+    head run once per image, and with ``split_merge`` the merge heads'
+    ``conv_h``; the top-down path (upsampling blocks, prior and merge heads,
+    observation decoder) once per sample."""
+    H, W, C = cfg.image_shape
+    k = cfg.n_samples if n_samples is None else n_samples
+    stages = cfg.stages
+    res = _scales(cfg)
+
+    per_img = _conv_flops((H, W), C, cfg.stem_features, 3, 1, False)[0]
+    c_in, hw = cfg.stem_features, (H, W)
+    for i, (h_w, _lat, n_b, _) in enumerate(stages):
+        per_img += sum(_residual_block_flops(hw, c_in if b == 0 else h_w, h_w, h_w)
+                       for b in range(n_b))
+        c_in, hw = h_w, res[i]
+    per_img += _conv_flops(res[-1], stages[-1][0], 2 * stages[-1][1], 3, 1, False)[0]
+
+    per_sample = 0.0
+    for i in range(len(stages) - 2, -1, -1):
+        h_w, lat, n_b, _ = stages[i]
+        lat_above = stages[i + 1][1]
+        per_sample += sum(_residual_block_flops(res[i], lat_above if b == 0 else h_w, h_w, h_w)
+                          for b in range(n_b))
+        head = _conv_flops(res[i], h_w, 2 * lat, 3, 1, False)[0]
+        per_sample += head  # the prior head
+        if cfg.split_merge:  # conv_d per sample, conv_h per image
+            per_sample += head
+            per_img += head
+        else:
+            per_sample += _conv_flops(res[i], 2 * h_w, 2 * lat, 3, 1, False)[0]
+    per_sample += _observation_flops(cfg)
+    return batch * (per_img + k * per_sample)
 
 
 def mdl_transcendental_census(n_mix: int) -> dict:
