@@ -146,7 +146,29 @@ and nothing falls back to a plain version.
    tile path; the profile of phase 11; and the DL pair on each ladder's own
    head output at the train shape (forward and backward) and at the eval
    chunk's (forward), both paths in turns against the plain version and
-   the bound.
+   the bound;
+13. the training run as users start it, model05 at full width (f32) on
+   ``synthetic:svhn_cropped`` (batch 128, validation 500, so the whole
+   256-image split), with every count set to 0 before (a) and read after
+   (f), every MoDL launch on the tile path, under cuDNN's deterministic
+   algorithms (set for this phase and put back after it): (a)
+   ``Trainer(cfg).fit()`` to step 40, evaluating every 20 steps with EMA
+   (0.999), report grids and a snapshot every 20 steps, one kept; (b) in a
+   second directory a fit to 20 and a new ``Trainer`` resuming it to 40,
+   its params, optimizer state and EMA bit-equal to (a); (c) 40 steps of
+   ``make_train_step`` from the same initial weights over the pipeline's
+   batches copied synchronously, bit-equal to (a) (``device_prefetch``'s
+   stream ordering); ``make_multi_train_step``'s rate on the same model
+   under the same flags; (d) ``latest``, ``best`` and the snapshot restored
+   (``latest`` equal to (a)'s state, its best validation loss in it, one
+   snapshot on disk), the ms of a save and of a restore; (e) ``report``'s
+   three 256x256x3 grids, finite and in [0, 1]; (f) ``Trainer.test`` with
+   the PSIS k-hat and the convergence curve over 5000 samples (the best
+   checkpoint's EMA weights, the 256 test images), ``evaluate_llh`` on 128
+   of them with and without the extras (the per-image llh bit-identical,
+   the curve ending on the mean, every k-hat summary finite), and 20 more
+   training steps from the live state, bit-equal to the resumed trainer
+   of (b) doing the same. It prints one ``trainer:`` JSON line.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -194,8 +216,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -207,11 +231,14 @@ from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
 from vae_mdl_tpu_torch.models.objective import compute_loss, training_loss_fn
 from vae_mdl_tpu_torch.models.vae import build_model, latent_shapes, prior_for
+from vae_mdl_tpu_torch.config import DataConfig, TrainConfig
+from vae_mdl_tpu_torch.data.pipeline import iterators_from_splits, make_splits
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
-from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
+from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
 from vae_mdl_tpu_torch.train.steps import make_multi_train_step, make_train_step
+from vae_mdl_tpu_torch.train.trainer import Trainer
 from vae_mdl_tpu_torch.utils.flops import (
     branch_counts,
     cascade_transcendentals,
@@ -222,6 +249,7 @@ from vae_mdl_tpu_torch.utils.flops import (
     modl_branch_counts,
     mufu_instructions,
 )
+from vae_mdl_tpu_torch.utils.logging import MetricLogger
 from vae_mdl_tpu_torch.utils.timing import (
     cuda_ms,
     device_times,
@@ -318,6 +346,8 @@ SFU: dict = {}
 # the two multiplies by the cotangent.
 DL_FWD_OPS = {"right": 14, "left": 14, "cdf": 19, "pdf": 31}
 DL_BWD_OPS = {"right": 15, "left": 18, "cdf": 31, "pdf": 33}
+# imgs/s of each model's training main path (phase 10b), by config
+TRAIN_RATES: dict = {}
 
 
 def say(line: str) -> None:
@@ -1856,7 +1886,7 @@ def main_path(name: str, path: str, smi: str) -> dict:
     if path == "eval":
         phase_eval(name, smi)
     else:
-        phase_train(name, smi)
+        TRAIN_RATES[name] = phase_train(name, smi)
     counts = probe_counts()
     say(f"{name} {path} main path: kernel launches {counts}")
     own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
@@ -1917,6 +1947,242 @@ def phase_ladders(smi: str):
     return by_path, fwd_cases, bwd_cases
 
 
+class RecordingLogger(MetricLogger):
+    """A ``MetricLogger`` that also keeps every image grid and every
+    ``Perf`` record it is given."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.grids, self.perf = [], []
+
+    def scalars(self, step, metrics, prefix="Evaluation"):
+        super().scalars(step, metrics, prefix)
+        if prefix == "Perf":
+            self.perf.append((step, {name: float(v) for name, v in metrics.items()}))
+
+    def image(self, step, name, img, prefix="Evaluation"):
+        super().image(step, name, img, prefix)
+        self.grids.append((step, name, img))
+
+
+def trainer_config(root: str, n_updates: int = 40):
+    """Phase 13's run: model05 at full width, f32, on synthetic SVHN-shaped
+    data (no dataset is read; the name says synthetic, so nothing falls
+    back)."""
+    return dataclasses.replace(
+        experiment("model05"),
+        data=DataConfig(dataset="synthetic:svhn_cropped", batch_size=128, val_batch_size=500),
+        train=TrainConfig(n_updates=n_updates, eval_interval=20, snapshot_interval=20,
+                          max_snapshots=1, ema_decay=0.999, report_images=True,
+                          checkpoint_dir=f"{root}/ckpt", log_dir=f"{root}/tb"))
+
+
+def states_equal(a, b) -> bool:
+    """Params, optimizer state and EMA bit for bit, and the step."""
+    same = []
+    for x, y in ((a.params, b.params), (a.opt_state, b.opt_state),
+                 (a.ema_params, b.ema_params)):
+        tree_map(lambda u, v: same.append(torch.equal(u, v)), x, y)
+    return a.step == b.step and all(same)
+
+
+def first_difference(a, b) -> str:
+    """The first leaf where two states differ, and by how much."""
+    for tree_name, x, y in (("params", a.params, b.params), ("ema", a.ema_params, b.ema_params)):
+        for name in x:
+            if not torch.equal(x[name], y[name]):
+                return (f"{tree_name} {name}: max |diff| "
+                        f"{float((x[name] - y[name]).abs().max()):.3e}")
+    return "the optimizer state"
+
+
+def cuda_seconds(fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def phase_trainer(smi: str) -> dict:
+    """Phase 13, the training run as users start it; see the module
+    docstring. -> the phase's kernel launches by name (its main path)."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            return _phase_trainer(root, smi)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _phase_trainer(root: str, smi: str) -> dict:
+    reset_probe_counts()
+    # (a) the uninterrupted run
+    cfg = trainer_config(f"{root}/a")
+    logger = RecordingLogger(cfg.train.log_dir, "model05")
+    trainer = Trainer(cfg, logger=logger)
+    state = trainer.fit(progress=False)
+    window2 = logger.perf[1][1]
+    say(f"trainer (a): step {state.step}, best validation loss {state.best_val_loss:.4f}; "
+        f"Perf by eval {logger.perf}; snapshots {trainer.ckpt.snapshots()} on {smi}")
+    if state.step != 40 or not np.isfinite(state.best_val_loss):
+        raise AssertionError(f"trainer (a): step {state.step}, best {state.best_val_loss}")
+    if len(logger.grids) != 6:
+        raise AssertionError(f"trainer (a): {len(logger.grids)} report grids, not 3 at each eval")
+
+    # (b) preempted at 20, resumed by a new Trainer on the same directory
+    Trainer(trainer_config(f"{root}/b", n_updates=20)).fit(progress=False)
+    resumed = Trainer(trainer_config(f"{root}/b"))
+    if resumed.state.step != 20:
+        raise AssertionError(f"trainer (b): resumed at step {resumed.state.step}, not 20")
+    resumed_state = resumed.fit(progress=False)
+    resume_equal = states_equal(resumed_state, state)
+    say(f"trainer (b): fit to 20, resumed by a new Trainer to 40: params, optimizer state and "
+        f"EMA bit-equal to (a): {resume_equal}")
+    if not resume_equal:
+        raise AssertionError(f"trainer (b): the resumed run differs from (a) at "
+                             f"{first_difference(resumed_state, state)}")
+
+    # (c) the same 40 steps with synchronous copies of the pipeline's batches
+    model = build_model(cfg.model, torch.Generator().manual_seed(cfg.train.seed))
+    plain = create_train_state(model, cfg.train)
+    step = make_train_step(model, cfg, make_optimizer(cfg.train))
+    train_iter, _, _ = iterators_from_splits(make_splits(cfg.data.dataset), cfg.data.batch_size,
+                                             cfg.data.val_batch_size, cfg.data.seed)
+    for _ in range(40):
+        plain, _ = step(plain, torch.as_tensor(next(train_iter)).to("cuda"))
+    torch.cuda.synchronize()
+    prefetch_equal = all(torch.equal(plain.params[n], state.params[n]) for n in state.params)
+    say(f"trainer (c): 40 steps of make_train_step on synchronous copies: params bit-equal to "
+        f"(a)'s through device_prefetch: {prefetch_equal}")
+    if not prefetch_equal:
+        raise AssertionError(f"trainer (c): the prefetched run differs at "
+                             f"{first_difference(plain, state)}")
+    # make_multi_train_step's rate on this model and these flags (phase 10's
+    # loop: 10 steps a call, the median of 5 calls after a warm-up)
+    multi = make_multi_train_step(model, cfg, make_optimizer(cfg.train), TRAIN_STEPS_PER_CALL)
+    pool = train_pool()
+    plain, _ = multi(plain, pool)
+    calls = []
+    for _ in range(TRAIN_BLOCKS):
+        (plain, _), seconds = cuda_seconds(lambda: multi(plain, pool))
+        calls.append(TRAIN_STEPS_PER_CALL * BATCH / seconds)
+    multi_rate = float(np.median(calls))
+    del model, plain, multi, pool
+
+    # (d) restores of latest, best and the snapshot; a save's and a restore's ms
+    ckpt = trainer.ckpt
+    snapshots = ckpt.snapshots()
+    if len(snapshots) != 1:
+        raise AssertionError(f"trainer (d): {snapshots} on disk, max_snapshots is 1")
+    scratch = create_train_state(build_model(cfg.model, torch.Generator().manual_seed(1)),
+                                 cfg.train)
+    restore_ms = []
+    for tag in ("latest", "best", snapshots[0]):
+        _, seconds = cuda_seconds(lambda: ckpt.restore(scratch, tag))
+        restore_ms.append(1e3 * seconds)
+        if tag == "latest" and not (states_equal(scratch, state)
+                                    and scratch.best_val_loss == state.best_val_loss):
+            raise AssertionError("trainer (d): 'latest' does not restore (a)'s final state")
+        if tag == snapshots[0] and scratch.step != int(tag.split("_")[1]):
+            raise AssertionError(f"trainer (d): {tag} restored at step {scratch.step}")
+    save_ms = []
+    for _ in range(3):
+        _, seconds = cuda_seconds(lambda: ckpt.save(state, "latest"))
+        save_ms.append(1e3 * seconds)
+    state_mb = os.path.getsize(os.path.join(ckpt.base, "latest", "state.pt")) / 1e6
+    say(f"trainer (d): restored latest (best validation loss {scratch.best_val_loss:.4f} in "
+        f"it), best and {snapshots[0]}: ms {', '.join(f'{ms:.1f}' for ms in restore_ms)}; "
+        f"save('latest') ms {', '.join(f'{ms:.1f}' for ms in save_ms)} ({state_mb:.1f} MB)")
+    del scratch
+
+    # (e) the report's three grids
+    logger.grids.clear()
+    trainer.report(40)
+    names = [name for _, name, _ in logger.grids]
+    for _, name, grid in logger.grids:
+        if grid.shape != (256, 256, 3) or not np.isfinite(grid).all() or not (
+                0.0 <= grid.min() and grid.max() <= 1.0):
+            raise AssertionError(f"trainer (e): the {name} grid is {grid.shape}, "
+                                 f"[{grid.min()}, {grid.max()}]")
+    if names != ["inputs", "reconstructions", "samples"]:
+        raise AssertionError(f"trainer (e): grids {names}")
+    say(f"trainer (e): report grids {names}, each 256x256x3, finite, in [0, 1]")
+
+    # (f) the test evaluation with its diagnostics; then fit goes on
+    live = {n: p.detach().clone() for n, p in state.params.items()}
+    (llh, per_image, metrics), seconds = cuda_seconds(
+        lambda: trainer.test(khat=True, k_curve=True))
+    n_test = len(per_image)
+    points = [0, len(metrics["k_curve_ks"]) // 5, -1]
+    say(f"trainer (f): test() 5000-IS on {n_test} images, the best checkpoint's EMA weights: "
+        f"llh {llh:.4f} nats, bpd {metrics['bpd']:.6f}, k-hat mean {metrics['khat_mean']:.4f} "
+        f"max {metrics['khat_max']:.4f}, frac > 0.7 {metrics['khat_frac_gt_07']:.4f}, "
+        f"underflow {metrics['khat_n_underflow']}, ties {metrics['khat_n_ties']}; curve at k = "
+        f"{metrics['k_curve_ks'][points].tolist()}: "
+        f"{np.round(metrics['k_curve_llh'][points], 4).tolist()}; {n_test / seconds:.2f} "
+        f"imgs/s with the extras")
+    finite = [metrics[k] for k in ("khat_mean", "khat_max", "khat_frac_gt_07")]
+    # the curve's last point is the mean of the same float32 values summed
+    # in another order in float64
+    curve_ok = abs(metrics["k_curve_llh"][-1] - llh) <= 1e-9 * abs(llh)
+    if not (np.isfinite(per_image).all() and np.isfinite(finite).all() and curve_ok):
+        raise AssertionError("trainer (f): test() gave non-finite values or a curve off its mean")
+    best = ckpt.load("best", "cuda")["ema_params"]
+    images = trainer.test_set[0][:BATCH]
+    (with_extras, seconds_extras) = cuda_seconds(lambda: evaluate_llh(
+        trainer.model, cfg, images, n_samples=5000, params=best, khat=True, k_curve=True))
+    (without, seconds_plain) = cuda_seconds(lambda: evaluate_llh(
+        trainer.model, cfg, images, n_samples=5000, params=best))
+    same = bool(np.array_equal(with_extras[1], without[1]))
+    curve_end = float(with_extras[2]["k_curve_llh"][-1])
+    say(f"trainer (f): evaluate_llh 5000-IS on {BATCH} test images: {BATCH / seconds_plain:.2f} "
+        f"imgs/s, {BATCH / seconds_extras:.2f} with k-hat and curve; per-image llh "
+        f"bit-identical: {same}; curve end {curve_end:.6f} vs mean {without[0]:.6f}")
+    if not same or abs(curve_end - without[0]) > 1e-9 * abs(without[0]):
+        raise AssertionError("trainer (f): the extras changed the llh, or the curve misses it")
+    untouched = all(torch.equal(live[n], p) for n, p in state.params.items())
+    more = trainer.fit(n_updates=60, progress=False)
+    other = resumed.fit(n_updates=60, progress=False)
+    continued = untouched and more.step == 60 and states_equal(more, other)
+    say(f"trainer (f): test() left the live weights as they were: {untouched}; fit to 60 "
+        f"continues from step 40's live state, bit-equal to the resumed trainer's: {continued}")
+    if not continued:
+        raise AssertionError("trainer (f): fit after test() did not continue from the live state")
+
+    counts = probe_counts()
+    say(f"trainer main path: kernel launches {counts}; MoDL forward by memory path "
+        f"{mdl_kernel.launches_by_path}, backward {mdl_kernel.backward_launches_by_path}")
+    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward"), "the training run")
+    _took(mdl_kernel.launches_by_path, "tiled", "the training run's MoDL forward")
+    _took(mdl_kernel.backward_launches_by_path, "tiled", "the training run's MoDL backward")
+    counts["mdl_log_prob tiled"] = mdl_kernel.launches_by_path["tiled"]
+    say("trainer: " + json.dumps({
+        "card": smi,
+        "trainer_imgs_per_sec_window2": window2["imgs_per_sec"],
+        "trainer_step_ms_window2": window2["step_ms"],
+        "multi_train_step_imgs_per_sec_same_flags": multi_rate,
+        "multi_train_step_imgs_per_sec_phase10": TRAIN_RATES.get("model05", {}).get("f32"),
+        "save_latest_ms": save_ms, "restore_ms": dict(zip(("latest", "best", snapshots[0]),
+                                                          restore_ms)),
+        "checkpoint_mb": state_mb,
+        "test_imgs_per_sec_with_extras": n_test / seconds,
+        "eval_imgs_per_sec": BATCH / seconds_plain,
+        "eval_imgs_per_sec_with_extras": BATCH / seconds_extras,
+        "modl_launches": {"forward": dict(mdl_kernel.launches_by_path),
+                          "backward": dict(mdl_kernel.backward_launches_by_path)},
+        "llh": llh, "khat_mean": metrics["khat_mean"], "khat_max": metrics["khat_max"],
+        "khat_frac_gt_07": metrics["khat_frac_gt_07"],
+        "khat_n_underflow": metrics["khat_n_underflow"], "khat_n_ties": metrics["khat_n_ties"],
+    }))
+    return counts
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -1951,6 +2217,7 @@ def main() -> None:
         timed(f"{name} profile", phase_profile, name)
     ladder_counts, ladder_fwd, ladder_bwd = timed("ladders", phase_ladders, smi)
     by_path.update(ladder_counts)
+    by_path["model05 trainer"] = timed("training run", phase_trainer, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'

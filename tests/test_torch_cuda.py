@@ -3,9 +3,12 @@ backward against their plain versions, their input checks, their launch
 counts, the two memory paths of each MoDL kernel against each other bit for
 bit, and the gradient's layout; the probe kernel, the channel sum and the
 null-body MoDL kernels against theirs; the default device of ``build_model``
-and the timing harness; the evaluator's Bernoulli binarisation; and one
+and the timing harness; the evaluator's Bernoulli binarisation; one
 biladder_celeba loss and gradient through the DL kernels against the plain
-version.
+version; and the training run's card pieces: ``device_prefetch`` against
+synchronous copies (each tensor's use recorded on the consumer's stream), a
+checkpoint of CUDA state restored onto the card and the CPU, and the
+streamed top log-weights on the card against the CPU's.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -991,3 +994,83 @@ def test_timing_harness_lands_on_the_card_by_default(cuda):
     assert batch.is_cuda and all(p.is_cuda for p in state.params.values())
     state, metrics = step(state, batch)
     assert state.step == 2 and np.isfinite(float(metrics["loss"])) and flops > 0
+
+
+def test_device_prefetch_on_the_card_equals_synchronous_copies(cuda, monkeypatch):
+    """Each batch staged on the producer's stream is bit-equal to a plain
+    synchronous copy, and was handed on after the consumer's stream was made
+    to wait on its copy and recorded on the tensor."""
+    from vae_mdl_tpu_torch.data import pipeline
+
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (128, 32, 32, 3), dtype=np.uint8) for _ in range(12)]
+    recorded = []
+    real = torch.Tensor.record_stream
+
+    def spy(tensor, stream):
+        recorded.append((tensor.data_ptr(), stream))
+        return real(tensor, stream)
+
+    monkeypatch.setattr(torch.Tensor, "record_stream", spy)
+    stream = pipeline.device_prefetch(iter(batches), size=2)
+    got = []
+    for batch in stream:
+        # a kernel on the consumer's stream reads the batch at once
+        got.append(batch.float().sum(dtype=torch.float64))
+        assert batch.device.type == "cuda"
+        assert recorded[-1] == (batch.data_ptr(), torch.cuda.current_stream())
+    want = [torch.as_tensor(b).to("cuda").float().sum(dtype=torch.float64) for b in batches]
+    assert len(got) == len(want) == len(recorded) == 12
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    again = list(pipeline.device_prefetch(iter(batches), size=2))
+    for a, b in zip(again, batches):
+        assert torch.equal(a.cpu(), torch.as_tensor(b))
+
+
+def test_a_cuda_checkpoint_restores_with_map_location(cuda, tmp_path):
+    """A state saved from the card restores onto the card and onto the CPU,
+    each tensor landing on its target's device with the same values."""
+    from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
+    from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
+    from vae_mdl_tpu_torch.train.steps import make_train_step
+
+    cfg = experiment("model01")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=0.9))
+    model = build_model(cfg.model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg.train)
+    step = make_train_step(model, cfg, make_optimizer(cfg.train))
+    batch = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (8, 28, 28, 1),
+                                                              dtype=np.uint8), device="cuda")
+    for _ in range(2):
+        state, _ = step(state, batch)
+    ckpt = Checkpointer(str(tmp_path), "model01")
+    ckpt.save(state, "latest")
+    for device in ("cuda", "cpu"):
+        target_model = build_model(cfg.model, torch.Generator().manual_seed(1), device=device)
+        target = create_train_state(target_model, cfg.train)
+        ckpt.restore(target, "latest")
+        assert target.step == 2
+        for tree, want in ((target.params, state.params), (target.opt_state, state.opt_state),
+                           (target.ema_params, state.ema_params)):
+            tree_map(lambda a, b: (a.device.type == device
+                                   and torch.equal(a.cpu(), b.cpu())) or pytest.fail(
+                                       "restored tensor differs or lies elsewhere"), tree, want)
+        for name, p in target_model.named_parameters():
+            assert p is target.params[name] and p.device.type == device
+
+
+def test_top_lw_update_on_the_card_equals_the_cpu(cuda):
+    from vae_mdl_tpu_torch.evaluation import psis
+
+    rng = np.random.default_rng(3)
+    chunks = np.round(rng.standard_normal((50, 100, 64)).astype(np.float32) * 4) / 4
+    chunks[rng.random(chunks.shape) < 0.05] = -np.inf
+    m = psis.tail_size(5000) + 1
+    cpu = psis.top_lw_init((64,), m)
+    gpu = psis.top_lw_init((64,), m, device="cuda")
+    for chunk in chunks:
+        cpu = psis.top_lw_update(cpu, torch.from_numpy(chunk))
+        gpu = psis.top_lw_update(gpu, torch.from_numpy(chunk).cuda())
+    assert gpu.shape == (m, 64)
+    assert torch.equal(gpu.cpu(), cpu)

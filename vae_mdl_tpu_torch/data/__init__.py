@@ -1,1 +1,2 @@
-"""Data handling; so far only the on-device preprocessing of a train step."""
+"""Data: sources, the host pipeline and its staging onto the device, and
+the on-device preprocessing."""

@@ -51,6 +51,10 @@ class Normal(Distribution):
                                 dtype=self.loc.dtype)
         return self.loc + self.scale * noise
 
+    def mean(self) -> torch.Tensor:
+        return torch.broadcast_to(self.loc, torch.broadcast_shapes(self.loc.shape,
+                                                                   self.scale.shape))
+
 
 @dataclasses.dataclass
 class Logistic(Distribution):
@@ -75,6 +79,10 @@ class Logistic(Distribution):
                                generator=generator, device=self.loc.device,
                                dtype=self.loc.dtype).clamp_min_(tiny)
         return self.loc + self.scale * (torch.log(noise) - torch.log1p(-noise))
+
+    def mean(self) -> torch.Tensor:
+        return torch.broadcast_to(self.loc, torch.broadcast_shapes(self.loc.shape,
+                                                                   self.scale.shape))
 
 
 @dataclasses.dataclass

@@ -152,6 +152,14 @@ class MixtureDiscretizedLogistic(Distribution):
         selected = torch.sum(auto * onehot[..., None, :], dim=-1)
         return selected * 0.5 + 0.5
 
+    def mean(self, generator: Optional[torch.Generator] = None, n: int = 100) -> torch.Tensor:
+        """Monte-Carlo mean of ``n`` samples drawn from ``generator``, or
+        from a generator seeded 0 on the parameters' device when none is
+        given (the JAX package's fixed ``PRNGKey(0)``)."""
+        if generator is None:
+            generator = torch.Generator(device=self.parameters.device).manual_seed(0)
+        return torch.mean(self.sample(generator, (n,)), dim=0)
+
 
 @dataclasses.dataclass
 class PixelMixtureDiscretizedLogistic(Distribution):
@@ -210,3 +218,21 @@ class PixelMixtureDiscretizedLogistic(Distribution):
         onehot = torch.nn.functional.one_hot(choice, self.n_mix).to(ls.dtype)
         selected = torch.sum(ls * onehot[..., None, :], dim=-1)
         return (selected + 1.0) / 2.0
+
+    def mean(self, generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The locations of one mixture component per pixel, chosen by
+        Gumbel-max from uniforms drawn from ``generator`` (seeded 0 on the
+        parameters' device when none is given) or injected as ``noise``,
+        shaped as the mixture logits; clipped and mapped to [0, 1]."""
+        loc, _, mix_logits = self._params()
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device=mix_logits.device).manual_seed(0)
+            noise = torch.rand(mix_logits.shape, generator=generator,
+                               device=mix_logits.device).clamp_min_(
+                                   torch.finfo(torch.float32).tiny)
+        choice = torch.argmax(mix_logits - torch.log(-torch.log(noise)), dim=-1)
+        onehot = torch.nn.functional.one_hot(choice, self.n_mix).to(loc.dtype)
+        selected = torch.sum(loc * onehot[..., None, :], dim=-1)
+        return (torch.clamp(selected, self.low, self.high) + 1.0) / 2.0

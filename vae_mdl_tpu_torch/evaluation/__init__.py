@@ -1,1 +1,2 @@
-"""The 5000-importance-sample evaluator."""
+"""The n-importance-sample evaluator with its PSIS k-hat and convergence
+curve, and the active-units diagnostic."""

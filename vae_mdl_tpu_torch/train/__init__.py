@@ -1,2 +1,2 @@
-"""Training: learning-rate schedules, optimizers and the train state, and the
-train and eval steps. The trainer loop and checkpoints are not ported yet."""
+"""Training: learning-rate schedules, optimizers and the train state, the
+train and eval steps, checkpoints and the trainer loop."""

@@ -117,19 +117,23 @@ def effective_beta(cfg: ExperimentConfig, step: int) -> float:
 
 
 def preprocess(cfg: ExperimentConfig, batch: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """uint8 batch -> model input, on the batch's device."""
+               generator: Optional[torch.Generator],
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 batch -> model input, on the batch's device. A Bernoulli model
+    on dynamically binarised data takes ``x = (u < x)``, ``u`` uniform on
+    [0, 1) drawn from ``generator`` or injected."""
     x = batch if batch.is_floating_point() else dequantize(batch)
     if cfg.model.likelihood == "bernoulli" and cfg.data.dynamic_binarization:
-        x = binarize(generator, x)
+        x = binarize(generator, x) if u is None else (u < x).float()
     return x
 
 
 def preprocess_train(cfg: ExperimentConfig, batch: torch.Tensor,
-                     rngs: Dict[str, torch.Generator]) -> torch.Tensor:
+                     rngs: Dict[str, torch.Generator],
+                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Train-path preprocessing: ``preprocess`` plus the train-only random
     horizontal flip. Expects the "binarize" and "flip" streams."""
-    x = preprocess(cfg, batch, rngs["binarize"])
+    x = preprocess(cfg, batch, rngs["binarize"], u)
     if cfg.data.augment_flip:
         x = random_flip(rngs["flip"], x)
     return x
@@ -139,13 +143,15 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
     """``(state, uint8 batch[B, H, W, C]) -> (state, metrics)``."""
     k = cfg.model.n_samples
 
-    def step(state: TrainState, batch: torch.Tensor, eps=None):
+    def step(state: TrainState, batch: torch.Tensor, eps=None, u=None):
         """One update of ``state`` (in place) on ``batch``; ``eps``, z_1's
         ``[k, B, n_latent]`` (``[k, B, h, w, c]`` for a ladder) or a sequence
         with one tensor per stochastic layer, bottom up, injects the
-        standard-normal noise in place of the "sample" stream's draw."""
+        standard-normal noise in place of the "sample" stream's draw, and
+        ``u`` (``[B, H, W, C]``, uniform on [0, 1)) the binarisation's
+        uniforms in place of the "binarize" stream's."""
         rngs = state.next_rngs("sample", "binarize", "flip", device=batch.device)
-        x = preprocess_train(cfg, batch, rngs)
+        x = preprocess_train(cfg, batch, rngs, u)
         beta = effective_beta(cfg, state.step)
         loss_fn = training_loss_fn(model, cfg, prior_for(cfg.model, x.device), x, k,
                                    rngs["sample"], beta, eps=eps)

@@ -24,12 +24,24 @@ becomes ``encoder.conv_0.weight``, ``decoder/glu_2/Conv_1/kernel``
   carried as it is.
 
 ``train_state_from_flax`` and ``train_state_to_flax`` carry a whole training
-state across: the params as above, optax Adam's (or Adamax's) ``count``,
-``mu`` and ``nu``, whose leaves are shaped as the params and convert the
-same way, the step, the best validation loss and the EMA copy. The JAX
-state is read and written through its attributes only (``params``,
-``opt_state``, ``step``, ``best_val_loss``, ``ema_params``, optax's
-namedtuples), so this module needs neither jax nor optax. The port's
+state across: the params as above, the optimizer state of every optimizer
+``make_optimizer`` builds, the step, the best validation loss and the EMA
+copy. The two optimizer states are walked side by side, the port's
+structure deciding what each JAX node is:
+
+- optax Adam's or Adamax's ``count``, ``mu`` and ``nu`` (the port's
+  ``{"count", "mu", "nu"}``), and the schedule's ``count`` beside them;
+- Keras Adam's ``count``, ``m`` and ``v`` (``{"count", "m", "v"}``);
+- ``optax.MultiSteps``' ``mini_step``, ``gradient_step``, ``acc_grads`` and
+  its inner state (``{"mini_step", "gradient_step", "inner_opt_state",
+  "acc_grads"}``), ``skip_state`` kept from the JAX side;
+- the ``optax.chain`` of ``clip_by_global_norm`` (an empty state) and the
+  optimizer (the port's ``[{}, inner]``).
+
+Leaves shaped as the params convert as the params do. The JAX state is read
+and written through its attributes only (``params``, ``opt_state``,
+``step``, ``best_val_loss``, ``ema_params``, optax's namedtuples and the
+Keras state's fields), so this module needs neither jax nor optax. The port's
 generators are seeded from an integer, not from a JAX key, so the seed is
 given, not carried.
 """
@@ -137,13 +149,56 @@ def _find_adam(tree):
     return None
 
 
-def _port_adam(cfg: ExperimentConfig, opt_state) -> dict:
-    if cfg.train.optimizer not in ("adam", "adamax") or cfg.train.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "the train-state bridge carries optax.adam and optax.adamax states "
-            f"without accumulation; got optimizer={cfg.train.optimizer!r}, "
-            f"grad_accum_steps={cfg.train.grad_accum_steps}")
-    return opt_state[-1] if isinstance(opt_state, list) else opt_state
+def _count(value, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(value)), dtype=torch.int32, device=device)
+
+
+def _opt_from_flax(node, port, placed, device):
+    """The port's optimizer state ``port`` filled from the JAX ``node``."""
+    if isinstance(port, list):  # chain(clip_by_global_norm, inner)
+        return [_opt_from_flax(n, p, placed, device) for n, p in zip(node, port)]
+    if not port:  # the clip's empty state
+        return port
+    if "mini_step" in port:
+        return {"mini_step": _count(node.mini_step, device),
+                "gradient_step": _count(node.gradient_step, device),
+                "inner_opt_state": _opt_from_flax(node.inner_opt_state,
+                                                  port["inner_opt_state"], placed, device),
+                "acc_grads": placed(node.acc_grads)}
+    if "m" in port:  # Keras Adam
+        return {"count": _count(node.count, device), "m": placed(node.m), "v": placed(node.v)}
+    adam = _find_adam(node)
+    return {"count": _count(adam.count, device), "mu": placed(adam.mu), "nu": placed(adam.nu)}
+
+
+def _opt_to_flax(port, like, cfg):
+    """The JAX optimizer state shaped as ``like`` holding the port's ``port``."""
+    if isinstance(port, list):
+        return type(like)(_opt_to_flax(p, n, cfg) for p, n in zip(port, like))
+    if not port:
+        return like
+    if "mini_step" in port:
+        return like._replace(
+            mini_step=np.asarray(int(port["mini_step"]), np.int32),
+            gradient_step=np.asarray(int(port["gradient_step"]), np.int32),
+            inner_opt_state=_opt_to_flax(port["inner_opt_state"], like.inner_opt_state, cfg),
+            acc_grads=params_to_flax(port["acc_grads"], cfg.model))
+    count = np.asarray(int(port["count"]), np.int32)
+    if "m" in port:  # Keras Adam: a flax struct, not a namedtuple
+        return like.replace(count=count, m=params_to_flax(port["m"], cfg.model),
+                            v=params_to_flax(port["v"], cfg.model))
+
+    def fill(node):
+        if _is_adam(node):
+            return node._replace(count=count, mu=params_to_flax(port["mu"], cfg.model),
+                                 nu=params_to_flax(port["nu"], cfg.model))
+        if "count" in _fields(node):  # the schedule's count
+            return node._replace(count=count)
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):  # a chain
+            return tuple(fill(n) for n in node)
+        return node
+
+    return fill(like)
 
 
 def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConfig,
@@ -156,9 +211,6 @@ def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConf
     state.seed = cfg.train.seed if seed is None else seed
     state.step = int(np.asarray(jax_state.step))
     state.best_val_loss = float(np.asarray(jax_state.best_val_loss))
-    adam = _find_adam(jax_state.opt_state)
-    port = _port_adam(cfg, state.opt_state)
-    port["count"] = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device)
 
     def placed(tree) -> Dict[str, torch.Tensor]:
         # in the parameters' order, not the Flax tree's: the optimizer walks
@@ -166,8 +218,7 @@ def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConf
         leaves = params_from_flax(tree, cfg.model)
         return {name: leaves[name].to(device) for name in state.params}
 
-    for moment in ("mu", "nu"):
-        port[moment] = placed(getattr(adam, moment))
+    state.opt_state = _opt_from_flax(jax_state.opt_state, state.opt_state, placed, device)
     if jax_state.ema_params is not None:
         state.ema_params = placed(jax_state.ema_params)
     return state
@@ -177,22 +228,9 @@ def train_state_to_flax(state: TrainState, cfg: ExperimentConfig, like):
     """The port's ``TrainState`` -> a JAX ``TrainState`` shaped as ``like``
     (one built by the JAX package's ``create_train_state`` for the same
     config), with numpy leaves; ``like``'s RNG key is kept."""
-    port = _port_adam(cfg, state.opt_state)
-    count = np.asarray(int(port["count"]), np.int32)
-
-    def fill(node):
-        if _is_adam(node):
-            return node._replace(count=count, mu=params_to_flax(port["mu"], cfg.model),
-                                 nu=params_to_flax(port["nu"], cfg.model))
-        if "count" in _fields(node):  # the schedule's count
-            return node._replace(count=count)
-        if isinstance(node, tuple) and not hasattr(node, "_fields"):  # a chain
-            return tuple(fill(n) for n in node)
-        return node
-
     return like.replace(
         params=params_to_flax(state.params, cfg.model),
-        opt_state=fill(like.opt_state),
+        opt_state=_opt_to_flax(state.opt_state, like.opt_state, cfg),
         step=np.asarray(state.step, np.int32),
         best_val_loss=np.asarray(state.best_val_loss, np.float32),
         ema_params=(None if state.ema_params is None
