@@ -169,6 +169,27 @@ and nothing falls back to a plain version.
    the curve ending on the mean, every k-hat summary finite), and 20 more
    training steps from the live state, bit-equal to the resumed trainer
    of (b) doing the same. It prints one ``trainer:`` JSON line.
+14. the CLI as users start it (``vae_mdl_tpu_torch.cli.run.main``), in a
+   fresh temporary directory made the working directory (the CLI writes
+   ``./assets/``; the repository's own ``assets/`` is never touched), under
+   phase 13's cuDNN flags, every count set to 0 before (a) and read after
+   (f), every MoDL and DL launch on the tile path: (a) ``train model05`` at
+   batch 128 on ``synthetic:svhn_cropped``, 40 steps, EMA 0.999, the final
+   5000-IS eval with k-hat and curve; its printed LLH equal to
+   ``evaluate_llh`` on the best checkpoint's EMA weights, its ``latest``
+   state equal to ``Trainer(cfg).fit()``'s, bit for bit; (b) ``eval`` of the
+   same weights printing the same LLH, then the bf16 eval (bf16 body and
+   head output: the MoDL kernel's bf16 instantiation on the tile path); (c)
+   ``sample --n 64`` and ``export`` of the sampler, reconstructor and encoder
+   at n = 64, each program loaded with ``load_exported`` and equal to the
+   live function on the same draws (uint8 equal, floats within
+   ``EXPORT_ATOL``), the live sampler and its program timed at n = 64 and
+   1024, no likelihood launch; (d) ``train model03 --bf16`` (the DL pair)
+   and ``train model01`` (the output-bias init, the Bernoulli head), 20
+   steps each, the loss finite and falling; (e) ``describe model05 --json``:
+   the live model's parameter count, the card's own peak; (f) ``parity
+   model05 --allow-synthetic``: a strict JSON report with the JAX report's
+   keys. It prints one ``cli:`` JSON line.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -214,7 +235,10 @@ glorot-uniform init from a seed; no checkpoint or dataset is read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
+import io
 import json
 import os
 import re
@@ -231,11 +255,16 @@ from vae_mdl_tpu_torch.data.preprocess import binarize
 from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
 from vae_mdl_tpu_torch.models.objective import compute_loss, training_loss_fn
 from vae_mdl_tpu_torch.models.vae import build_model, latent_shapes, prior_for
+from vae_mdl_tpu_torch.cli.run import main as cli_main
 from vae_mdl_tpu_torch.config import DataConfig, TrainConfig
+from vae_mdl_tpu_torch.config_io import load_config
 from vae_mdl_tpu_torch.data.pipeline import iterators_from_splits, make_splits
+from vae_mdl_tpu_torch.models.export import load_exported
+from vae_mdl_tpu_torch.models.inference import make_encoder_fn, make_reconstructor, make_sampler
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
+from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
 from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
 from vae_mdl_tpu_torch.train.steps import make_multi_train_step, make_train_step
 from vae_mdl_tpu_torch.train.trainer import Trainer
@@ -346,7 +375,8 @@ SFU: dict = {}
 # the two multiplies by the cotangent.
 DL_FWD_OPS = {"right": 14, "left": 14, "cdf": 19, "pdf": 31}
 DL_BWD_OPS = {"right": 15, "left": 18, "cdf": 31, "pdf": 33}
-# imgs/s of each model's training main path (phase 10b), by config
+# imgs/s of each model's training main path (phase 10b), by config; phase
+# 13's Trainer window under "model05 trainer"
 TRAIN_RATES: dict = {}
 
 
@@ -2028,6 +2058,7 @@ def _phase_trainer(root: str, smi: str) -> dict:
     trainer = Trainer(cfg, logger=logger)
     state = trainer.fit(progress=False)
     window2 = logger.perf[1][1]
+    TRAIN_RATES["model05 trainer"] = window2["imgs_per_sec"]
     say(f"trainer (a): step {state.step}, best validation loss {state.best_val_loss:.4f}; "
         f"Perf by eval {logger.perf}; snapshots {trainer.ckpt.snapshots()} on {smi}")
     if state.step != 40 or not np.isfinite(state.best_val_loss):
@@ -2183,6 +2214,257 @@ def _phase_trainer(root: str, smi: str) -> dict:
     return counts
 
 
+# -- phase 14: the CLI as users start it --------------------------------------------
+
+# the keys of the JAX CLI's parity report (vae_mdl_tpu/cli/run.py cmd_parity)
+PARITY_KEYS = {
+    "model", "dataset", "synthetic_rehearsal", "step", "n_updates_protocol", "n_samples",
+    "llh", "bpd", "khat_mean", "khat_max", "khat_frac_gt_07", "khat_n_underflow",
+    "khat_n_ties", "k_curve_second_half_climb", "timestamp", "status", "target", "deviation"}
+# the exported programs' float outputs against the live functions on the card
+EXPORT_ATOL = 1e-6
+# imgs/s of the live sampler and its exported program: CUDA events, median of
+EXPORT_REPS = 5  # this many calls after a warm-up, at each n
+EXPORT_SIZES = (64, 1024)
+
+
+def cli(argv):
+    """``cli.run.main(argv)``, its standard output echoed and returned with
+    the seconds it took."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"  | {line}")
+    return text, seconds
+
+
+def printed_llh(text: str) -> float:
+    """The exact LLH a CLI eval line prints (``(llh <repr>)``)."""
+    found = re.findall(r"\(llh (-?[0-9.e+-]+|nan|-?inf)\)", text)
+    if len(found) != 1:
+        raise AssertionError(f"expected one printed LLH, found {found}")
+    return float(found[0])
+
+
+def logged(log_dir: str, prefix: str, key: str) -> list:
+    """``key`` of every ``prefix`` record a run's logger wrote under ``log_dir``."""
+    files = glob.glob(os.path.join(log_dir, "*", "metrics.jsonl"))
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: {len(files)} metrics files, not 1")
+    with open(files[0]) as f:
+        records = [json.loads(line) for line in f]
+    return [r[key] for r in records if r["prefix"] == prefix]
+
+
+def launches_now() -> dict:
+    return {**kernel_structure.launch_counts(),
+            **{f"mdl_log_prob {p}": n for p, n in mdl_kernel.launches_by_path.items()},
+            **{f"mdl_log_prob_backward {p}": n
+               for p, n in mdl_kernel.backward_launches_by_path.items()},
+            **{f"dl_log_prob {p}": n for p, n in dl_kernel.launches_by_path.items()},
+            **{f"dl_log_prob_backward {p}": n
+               for p, n in dl_kernel.backward_launches_by_path.items()}}
+
+
+def launched_since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in launches_now().items() if n != before[k]}
+
+
+def rate(fn, n: int) -> float:
+    """imgs/s of ``fn`` making ``n`` images: CUDA events, the median of
+    ``EXPORT_REPS`` calls after a warm-up."""
+    fn()
+    return n / float(np.median([cuda_seconds(fn)[1] for _ in range(EXPORT_REPS)]))
+
+
+def phase_cli(smi: str) -> dict:
+    """Phase 14, the CLI as users start it; see the module docstring. It runs
+    in a fresh temporary directory made the working directory, so that the
+    CLI's ``./assets/`` lies there. -> the phase's kernel launches by name."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.chdir(root)
+            try:
+                return _phase_cli(root, smi)
+            finally:
+                os.chdir(cwd)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _phase_cli(root: str, smi: str) -> dict:
+    data = ["--dataset", "synthetic:svhn_cropped", "--batch-size", str(BATCH)]
+    run = data + ["--checkpoint-dir", f"{root}/ckpt"]
+    t_phase = time.perf_counter()
+    reset_probe_counts()
+
+    # (a) train model05 with EMA, checkpoints, assets and the final eval
+    text, train_s = cli(["train", "model05", "--n-updates", "40", "--eval-interval", "20",
+                         "--ema", "0.999", "--n-samples", "5000", "--khat", "--k-curve",
+                         "--log-dir", f"{root}/tb_a"] + run)
+    llh_a = printed_llh(text)
+    assets = sorted(os.listdir(f"{root}/assets"))
+    if assets != [f"model05_{t}.png" for t in ("inputs", "recon", "samples")]:
+        raise AssertionError(f"cli (a): assets {assets}")
+    window2 = logged(f"{root}/tb_a", "Perf", "imgs_per_sec")[1]
+    cfg = load_config(f"{root}/ckpt/model05/config.json")
+    ckpt = Checkpointer(f"{root}/ckpt", "model05")
+    best = ckpt.load("best", "cuda")["ema_params"]
+    test = make_splits(cfg.data.dataset).test[0]
+    model = build_model(cfg.model, torch.Generator().manual_seed(SEED))
+    (llh_lib, _, _), eval_s = cuda_seconds(lambda: evaluate_llh(model, cfg, test,
+                                                                n_samples=5000, params=best))
+    say(f"cli (a): train model05 (40 steps, EMA 0.999) {train_s:.1f} s; window 2 "
+        f"{window2:.1f} imgs/s (phase 13's Trainer {TRAIN_RATES.get('model05 trainer')}); "
+        f"printed llh {llh_a!r}; evaluate_llh on the best checkpoint's EMA weights "
+        f"{llh_lib!r} ({len(test)} images, {len(test) / eval_s:.2f} imgs/s); assets {assets}")
+    if llh_a != llh_lib:
+        raise AssertionError(f"cli (a): printed llh {llh_a!r} != the library's {llh_lib!r}")
+    lib_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=f"{root}/lib", log_dir=f"{root}/tb_lib"))
+    lib = Trainer(lib_cfg).fit(progress=False).state_dict()
+    saved = ckpt.load("latest", "cuda")
+    same = [saved["step"] == lib["step"] == 40]
+    for key in ("params", "opt_state", "ema_params"):
+        tree_map(lambda u, v: same.append(torch.equal(u, v)), saved[key], lib[key])
+    say(f"cli (a): the CLI's 'latest' equals Trainer(cfg).fit() bit for bit: {all(same)}")
+    if not all(same):
+        raise AssertionError("cli (a): the CLI's final state differs from the library Trainer's")
+
+    # (b) eval of the best checkpoint's EMA weights; then the bf16 eval
+    text, eval_cli_s = cli(["eval", "model05", "--ckpt", "best", "--ema", "0.999",
+                            "--n-samples", "5000", "--log-dir", f"{root}/tb_b"] + run)
+    llh_b = printed_llh(text)
+    if llh_b != llh_a:
+        raise AssertionError(f"cli (b): eval printed {llh_b!r}, train {llh_a!r}")
+    before = launches_now()
+    text, bf16_s = cli(["eval", "model05", "--ckpt", "best", "--ema", "0.999", "--bf16",
+                        "--likelihood-io-dtype", "bfloat16", "--n-samples", "5000",
+                        "--log-dir", f"{root}/tb_b16"] + run)
+    bf16 = launched_since(before)
+    if not bf16.get("mdl_log_prob tiled") or bf16.get("mdl_log_prob direct"):
+        raise AssertionError(f"cli (b): the bf16 eval launched {bf16}")
+    say(f"cli (b): eval printed {llh_b!r} ({eval_cli_s:.1f} s); bf16 eval llh "
+        f"{printed_llh(text)!r} ({bf16_s:.1f} s), launches {bf16}")
+
+    # (c) sample and export, no likelihood kernel
+    before = launches_now()
+    weights = ["--ckpt", "best", "--ema", "0.999", "--log-dir", f"{root}/tb_c"] + run
+    cli(["sample", "model05", "--n", "64"] + weights)
+    x = torch.as_tensor(test[:64], device="cuda").float() / 255.0
+    gen = lambda: torch.Generator(device="cuda").manual_seed(SEED)  # noqa: E731
+    live = {"sampler": lambda: make_sampler(model, cfg.model)(best, gen(), 64),
+            "reconstructor": lambda: make_reconstructor(model, cfg.model)(best, gen(), x),
+            "encoder": lambda: make_encoder_fn(model)(best, gen(), x)}
+    exported = {}
+    for what in ("sampler", "reconstructor", "encoder"):
+        path = f"{root}/model05_{what}.pt2"
+        _, export_s = cli(["export", "model05", "--what", what, "--n", "64", "--out", path]
+                          + weights)
+        t0 = time.perf_counter()
+        serve = load_exported(path)
+        load_s = time.perf_counter() - t0
+        got = serve(gen()) if what == "sampler" else serve(gen(), x)
+        want = live[what]()
+        if what == "sampler":
+            diff = int((got.int() - want.int()).abs().max())
+            ok = got.dtype == torch.uint8 and diff == 0
+        else:
+            pairs = zip(got, want) if what == "encoder" else [(got, want)]
+            diff = max(float((a - b).abs().max()) for a, b in pairs)
+            ok = diff <= EXPORT_ATOL
+        exported[what] = {"export_cli_s": export_s, "load_s": load_s,
+                          "pt2_mb": os.path.getsize(path) / 1e6, "max_abs_diff": diff}
+        if not ok:
+            raise AssertionError(f"cli (c): the exported {what} differs from live by {diff}")
+    rates = {}
+    for n in EXPORT_SIZES:
+        path = f"{root}/sampler_{n}.pt2"
+        if n == 64:
+            path = f"{root}/model05_sampler.pt2"
+        else:
+            _, seconds = cli(["export", "model05", "--what", "sampler", "--n", str(n),
+                              "--out", path] + weights)
+            exported[f"sampler n={n}"] = {"export_cli_s": seconds,
+                                          "pt2_mb": os.path.getsize(path) / 1e6}
+        serve = load_exported(path)
+        sampler = make_sampler(model, cfg.model)
+        rates[n] = {"live_imgs_per_sec": rate(lambda: sampler(best, gen(), n), n),
+                    "exported_imgs_per_sec": rate(lambda: serve(gen()), n)}
+    sampled = launched_since(before)
+    say(f"cli (c): sample, export and the loaded programs on {smi}: {exported}; imgs/s "
+        f"{rates}; likelihood launches {sampled}")
+    if sampled:
+        raise AssertionError(f"cli (c): sampling or export launched {sampled}")
+
+    # (d) model03 in bf16 (the DL pair) and model01 (the bias init, Bernoulli)
+    losses = {}
+    for name, extra in (("model03", ["--bf16"] + data),
+                        ("model01", ["--dataset", "synthetic:mnist"])):
+        text, _ = cli(["train", name, "--n-updates", "20", "--eval-interval", "10",
+                       "--skip-final-eval", "--checkpoint-dir", f"{root}/ckpt_d",
+                       "--log-dir", f"{root}/tb_{name}"] + extra)
+        losses[name] = logged(f"{root}/tb_{name}", "Train", "loss")
+        if not (np.isfinite(losses[name]).all() and losses[name][-1] < losses[name][0]):
+            raise AssertionError(f"cli (d): {name} losses {losses[name]}")
+        if name == "model01" and "output bias initialised" not in text:
+            raise AssertionError("cli (d): model01 trained without its bias init")
+    say(f"cli (d): train losses at steps 1 and 11: {losses}")
+
+    # (e) describe on the card: the live model's parameter count, the card's peak
+    text, _ = cli(["describe", "model05", "--json"])
+    card = json.loads(text)
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = device_peaks()["float32"]
+    if (card["n_params"], card["peak_part"], card["flops_peak"]) != (
+            n_params, torch.cuda.get_device_name(0), peak):
+        raise AssertionError(f"cli (e): describe gave {card}")
+
+    # (f) the parity rehearsal
+    report = f"{root}/parity.json"
+    cli(["parity", "model05", "--allow-synthetic", "--n-updates", "20", "--report", report,
+         "--checkpoint-dir", f"{root}/ckpt_f", "--log-dir", f"{root}/tb_f"] + data)
+    with open(report) as f:
+        parity = json.loads(f.read(), parse_constant=lambda token: (_ for _ in ()).throw(
+            ValueError(f"non-RFC 8259 token {token}")))
+    if set(parity) != PARITY_KEYS or parity["synthetic_rehearsal"] is not True:
+        raise AssertionError(f"cli (f): report keys {sorted(parity)}")
+
+    counts = probe_counts()
+    counts.update({k: n for k, n in launches_now().items() if " " in k})
+    say(f"cli main path: kernel launches {counts}")
+    _only({k: n for k, n in counts.items() if " " not in k},
+          ("mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob", "dl_log_prob_backward"),
+          "the CLI")
+    for kernel in ("mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob",
+                   "dl_log_prob_backward"):
+        if counts[f"{kernel} direct"]:
+            raise AssertionError(f"the CLI launched {kernel} on the direct path")
+    seconds = time.perf_counter() - t_phase
+    say("cli: " + json.dumps({
+        "card": smi, "seconds": seconds,
+        "train_imgs_per_sec_window2": window2,
+        "trainer_imgs_per_sec_window2_phase13": TRAIN_RATES.get("model05 trainer"),
+        "train_cli_s": train_s, "llh": llh_a, "llh_library": llh_lib,
+        "eval_imgs_per_sec": len(test) / eval_s, "eval_images": len(test),
+        "eval_cli_s": eval_cli_s, "eval_bf16_cli_s": bf16_s, "export": exported,
+        "sampler_rates": rates, "describe_ceiling_imgs_per_sec": card["ceiling_imgs_per_sec"],
+        "parity_status": parity["status"], "losses": losses,
+        "launches": {k: n for k, n in counts.items() if n and k.startswith(("mdl", "dl"))},
+    }))
+    return counts
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -2218,6 +2500,7 @@ def main() -> None:
     ladder_counts, ladder_fwd, ladder_bwd = timed("ladders", phase_ladders, smi)
     by_path.update(ladder_counts)
     by_path["model05 trainer"] = timed("training run", phase_trainer, smi)
+    by_path["model05 cli"] = timed("CLI", phase_cli, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'

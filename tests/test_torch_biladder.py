@@ -183,7 +183,8 @@ def test_generate_shapes():
     with torch.no_grad():
         pxz = pair.model.generate(torch.randn((2, 3) + pair.cfg.top_latent_shape(),
                                               generator=gen), gen)
-    assert pxz.z is None and pxz.dist.loc.shape == (2, 3, 8, 8, 3)
+    # generate attaches the x sample, drawn from the generator, as JAX's does
+    assert pxz.dist.loc.shape == pxz.x.shape == (2, 3, 8, 8, 3)
     assert pair.model.prior().event_axes == (-1, -2, -3)
 
 

@@ -31,6 +31,7 @@ iterations; nan meets nan); the channel sums add 50 to 100 float32 terms in
 another order (atol 1e-4); ``0.5 p + g`` is exact.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1074,3 +1075,57 @@ def test_top_lw_update_on_the_card_equals_the_cpu(cuda):
         gpu = psis.top_lw_update(gpu, torch.from_numpy(chunk).cuda())
     assert gpu.shape == (m, 64)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.parametrize("what", ["sampler", "reconstructor", "encoder"])
+def test_exported_programs_on_the_card_equal_live(cuda, what):
+    """model05's exported sampler, reconstructor and encoder, loaded onto the
+    card (``load_exported``'s default), against the live functions on the
+    same draws: uint8 images equal, floats within 1e-6; no likelihood
+    kernel launches."""
+    from vae_mdl_tpu_torch.models import export as mexport
+    from vae_mdl_tpu_torch.models import inference
+    from vae_mdl_tpu_torch.probes.kernel_structure import launch_counts, reset_counts
+
+    cfg = MODELS["model05"]
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    x = torch.rand((8,) + cfg.image_shape, generator=torch.Generator().manual_seed(1)).cuda()
+    reset_counts()
+    if what == "sampler":
+        blob = mexport.export_sampler(model, cfg, params, n=8)
+        live = inference.make_sampler(model, cfg)(
+            params, torch.Generator(device="cuda").manual_seed(3), 8)
+        got = mexport.load_exported(blob)(3)
+        assert got.dtype == torch.uint8 and got.is_cuda and torch.equal(got, live)
+    else:
+        export = (mexport.export_reconstructor if what == "reconstructor"
+                  else mexport.export_encoder)
+        make = (inference.make_reconstructor(model, cfg) if what == "reconstructor"
+                else inference.make_encoder_fn(model))
+        blob = export(model, cfg, params, tuple(x.shape))
+        live = make(params, torch.Generator(device="cuda").manual_seed(3), x)
+        got = mexport.load_exported(blob)(3, x)
+        for a, b in zip(*((got, live) if what == "encoder" else ((got,), (live,)))):
+            assert a.is_cuda and float((a - b).abs().max()) <= 1e-6
+    assert not any(launch_counts().values())
+
+
+def test_cli_train_and_eval_take_the_tile_path(cuda, tmp_path, monkeypatch):
+    """The CLI's model05 train and eval on the card (the default device):
+    every MoDL launch, forward and backward, on the tile path."""
+    from vae_mdl_tpu_torch.cli.run import main
+    from vae_mdl_tpu_torch.probes.kernel_structure import launch_counts, reset_counts
+
+    monkeypatch.chdir(tmp_path)
+    common = ["--dataset", "synthetic:svhn_cropped", "--batch-size", "32",
+              "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-dir", str(tmp_path / "tb")]
+    reset_counts()
+    main(["train", "model05", "--n-updates", "4", "--eval-interval", "2", "--n-samples", "100"]
+         + common)
+    main(["eval", "model05", "--n-samples", "100"] + common)
+    counts = launch_counts()
+    assert counts["mdl_log_prob"] > 0 and counts["mdl_log_prob_backward"] == 4
+    assert mdl_kernel.launches_by_path["direct"] == 0
+    assert mdl_kernel.backward_launches_by_path["direct"] == 0
+    assert os.path.exists(tmp_path / "assets" / "model05_samples.png")

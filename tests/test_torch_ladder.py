@@ -400,7 +400,8 @@ def test_generate_and_encode_shapes():
         z_top = torch.randn((2, 4) + cfg.top_latent_shape(), generator=gen)
         pxz = model.generate(z_top, gen)
         Qs = model.encode(torch.rand(4, 16, 16, 3, generator=gen), 2, gen)
-    assert pxz.z is None and pxz.dist.loc.shape == (2, 4, 16, 16, 3)
+    # generate attaches the x sample, drawn from the generator, as JAX's does
+    assert pxz.dist.loc.shape == pxz.x.shape == (2, 4, 16, 16, 3)
     assert [tuple(q.z.shape) for q in Qs] == [(2, 4) + s for s in cfg.latent_shapes()]
     assert model.prior().loc.shape == cfg.top_latent_shape() == (2, 2, 4)
 

@@ -15,9 +15,12 @@ metric logging and report grids (``utils/``) and config files
 (``config_io.py``); the n-sample test evaluation with the PSIS k-hat and the
 convergence curve, and the active-units diagnostic (``evaluation/``); every
 TPU kernel's CUDA counterpart (``csrc/``, ``ops/cuda/``) and the measurement
-probes (``probes/``, ``utils/timing.py``, ``utils/flops.py``). The CLI,
-inference, export, the parallel paths and the reference-checkpoint import are
-to come (ROADMAP.md).
+probes (``probes/``, ``utils/timing.py``, ``utils/flops.py``); and how users
+start it: the CLI (``cli/run.py``, ``python -m vae_mdl_tpu_torch``),
+inference (``models/inference.py``), ``torch.export`` serving
+(``models/export.py``), the Keras reference-checkpoint import
+(``utils/import_reference.py``) and ``examples/``. The parallel paths are to
+come (ROADMAP.md).
 
 Entry points run on the CUDA card and raise where there is none, unless the
 caller passes ``device="cpu"``.

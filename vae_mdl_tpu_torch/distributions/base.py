@@ -37,3 +37,15 @@ class DistributionTuple:
     @property
     def z(self):
         return self.sample
+
+    @property
+    def x(self):
+        return self.sample
+
+    @property
+    def p(self):
+        return self.dist
+
+    @property
+    def q(self):
+        return self.dist

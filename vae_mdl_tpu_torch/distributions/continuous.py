@@ -55,6 +55,10 @@ class Normal(Distribution):
         return torch.broadcast_to(self.loc, torch.broadcast_shapes(self.loc.shape,
                                                                    self.scale.shape))
 
+    def kl_to_standard_normal(self) -> torch.Tensor:
+        """The analytic KL(N(loc, scale) || N(0, 1)), elementwise."""
+        return 0.5 * (self.loc * self.loc + self.scale * self.scale - 1.0) - torch.log(self.scale)
+
 
 @dataclasses.dataclass
 class Logistic(Distribution):

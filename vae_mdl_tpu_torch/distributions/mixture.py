@@ -152,13 +152,15 @@ class MixtureDiscretizedLogistic(Distribution):
         selected = torch.sum(auto * onehot[..., None, :], dim=-1)
         return selected * 0.5 + 0.5
 
-    def mean(self, generator: Optional[torch.Generator] = None, n: int = 100) -> torch.Tensor:
+    def mean(self, generator: Optional[torch.Generator] = None, n: int = 100,
+             noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """Monte-Carlo mean of ``n`` samples drawn from ``generator``, or
         from a generator seeded 0 on the parameters' device when none is
-        given (the JAX package's fixed ``PRNGKey(0)``)."""
-        if generator is None:
+        given (the JAX package's fixed ``PRNGKey(0)``); ``noise`` injects the
+        uniforms of the ``n`` samples instead, as ``sample`` takes them."""
+        if generator is None and noise is None:
             generator = torch.Generator(device=self.parameters.device).manual_seed(0)
-        return torch.mean(self.sample(generator, (n,)), dim=0)
+        return torch.mean(self.sample(generator, (n,), noise=noise), dim=0)
 
 
 @dataclasses.dataclass

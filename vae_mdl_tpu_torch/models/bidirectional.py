@@ -27,7 +27,7 @@ from torch import nn
 
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
 from vae_mdl_tpu_torch.models.ladder import Stage, stage_latent_shapes
-from vae_mdl_tpu_torch.models.vae import Noise, per_layer, prior_for
+from vae_mdl_tpu_torch.models.vae import Noise, generative_noise, observe, per_layer, prior_for
 from vae_mdl_tpu_torch.nn.blocks import (
     DTYPES,
     DecoderBlock,
@@ -197,17 +197,23 @@ class BiLadderVAE(nn.Module):
         since the posterior conditions on the generative path."""
         return self(x, n_samples, generator, eps)[0]
 
-    def decode(self, z1: torch.Tensor) -> DistributionTuple:
-        """p(x | z_1), no sample attached."""
-        return ladder_observation(self, z1)
+    def decode(self, z1: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise=None) -> DistributionTuple:
+        """p(x | z_1), with an x sample attached when ``generator`` or
+        ``noise`` is given."""
+        return observe(ladder_observation(self, z1).dist, generator, noise)
 
-    def generate(self, z_top: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> DistributionTuple:
-        """Ancestral sampling through the prior heads, then p(x | z_1)."""
+    def generate(self, z_top: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise=None) -> DistributionTuple:
+        """Ancestral sampling through the prior heads, then p(x | z_1) with an
+        x sample. ``noise``: the standard normals of z_{L-1} .. z_1, then the
+        x draw's noise (``models.vae.generative_noise``)."""
+        n_layers = len(self.config.stages)
+        layer_noise, obs_noise = generative_noise(noise, n_layers)
         z = z_top
-        for i in range(len(self.config.stages) - 2, -1, -1):
-            z = self.prior_heads[i](self.up_blocks[i](z)).sample(generator)
-        return self.decode(z)
+        for i, eps in zip(range(n_layers - 2, -1, -1), layer_noise):
+            z = self.prior_heads[i](self.up_blocks[i](z)).sample(generator, noise=eps)
+        return self.decode(z, generator, obs_noise)
 
     def prior(self) -> Normal:
         return prior_for(self.config, self.stem.weight.device)

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from vae_mdl_tpu_torch.distributions import DistributionTuple, Normal
-from vae_mdl_tpu_torch.models.vae import Noise, per_layer, prior_for
+from vae_mdl_tpu_torch.models.vae import Noise, generative_noise, observe, per_layer, prior_for
 from vae_mdl_tpu_torch.nn.blocks import (
     DTYPES,
     DecoderBlock,
@@ -129,9 +129,11 @@ class ConvLadderVAE(nn.Module):
 
     # -- generation -----------------------------------------------------------
 
-    def decode(self, z1: torch.Tensor) -> DistributionTuple:
-        """p(x | z_1), no sample attached."""
-        return ladder_observation(self, z1)
+    def decode(self, z1: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise=None) -> DistributionTuple:
+        """p(x | z_1), with an x sample attached when ``generator`` or
+        ``noise`` is given."""
+        return observe(ladder_observation(self, z1).dist, generator, noise)
 
     def decode_down(self, Qs: Tuple[DistributionTuple, ...]):
         """p(z_i | z_{i+1}) at the inference samples, and p(x | z_1)."""
@@ -139,13 +141,16 @@ class ConvLadderVAE(nn.Module):
                    for i, block in enumerate(self.dec_blocks))
         return Ps, self.decode(Qs[0].z)
 
-    def generate(self, z_top: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> DistributionTuple:
-        """Ancestral sampling z_L -> ... -> z_1, then p(x | z_1)."""
+    def generate(self, z_top: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise=None) -> DistributionTuple:
+        """Ancestral sampling z_L -> ... -> z_1, then p(x | z_1) with an x
+        sample. ``noise``: the standard normals of z_{L-1} .. z_1, then the
+        x draw's noise (``models.vae.generative_noise``)."""
+        layer_noise, obs_noise = generative_noise(noise, len(self.dec_blocks) + 1)
         z = z_top
-        for block in reversed(self.dec_blocks):
-            z = block(z).sample(generator)
-        return self.decode(z)
+        for block, eps in zip(reversed(self.dec_blocks), layer_noise):
+            z = block(z).sample(generator, noise=eps)
+        return self.decode(z, generator, obs_noise)
 
     def forward(self, x: torch.Tensor, n_samples: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, eps: Noise = None):

@@ -16,9 +16,12 @@ take the ladder families' configs (``models/ladder.py``,
 Randomness comes from an explicit ``torch.Generator``, or as injected
 standard-normal noise ``eps``: one tensor ``[k, B, n_latent]`` for z_1, or a
 sequence with one tensor per stochastic layer, bottom up (the upper layers'
-``[k, B, n_i]``). Unlike the JAX ``decode``, which draws an x sample the
-evaluator never uses, ``decode`` here returns the observation distribution
-without a sample.
+``[k, B, n_i]``). ``decode`` attaches an x sample, as the JAX ``decode``
+does, when it is given a generator or the sample's noise; without either it
+returns the observation distribution alone, so that the training and
+evaluation passes draw no x they never use. ``generate`` takes the noise of
+every layer below the top and of the x draw as tensors, which is what lets an
+exported program take its randomness as inputs (``models/export.py``).
 """
 from __future__ import annotations
 
@@ -54,6 +57,28 @@ def per_layer(eps: Noise, n_layers: int) -> Tuple[Optional[torch.Tensor], ...]:
     if len(eps) != n_layers:
         raise ValueError(f"noise for {len(eps)} layers given to a model of {n_layers}")
     return tuple(eps)
+
+
+def observe(pxz, generator: Optional[torch.Generator] = None,
+            noise=None) -> DistributionTuple:
+    """p(x | z_1) as a ``DistributionTuple``, with a sample of it attached
+    when ``generator`` or ``noise`` (the sample's standard draw, as the
+    distribution's ``sample`` takes it) is given."""
+    x = None if generator is None and noise is None else pxz.sample(generator, noise=noise)
+    return DistributionTuple(pxz, x, axes=pxz.event_axes)
+
+
+def generative_noise(noise, n_layers: int):
+    """``generate``'s ``noise`` as (one entry per layer below the top, top
+    down; the observation's). ``noise`` is None or a sequence of
+    ``n_layers`` entries in that order; an entry None is drawn from the
+    generator (the observation's: no x sample without a generator)."""
+    if noise is None:
+        return (None,) * (n_layers - 1), None
+    if len(noise) != n_layers:
+        raise ValueError(f"generate takes {n_layers} noise entries (each layer below the "
+                         f"top, then the observation); got {len(noise)}")
+    return tuple(noise[:-1]), noise[-1]
 
 
 class VAE(nn.Module):
@@ -144,10 +169,11 @@ class VAE(nn.Module):
 
     # -- generation -----------------------------------------------------------
 
-    def decode(self, z1: torch.Tensor) -> DistributionTuple:
-        """p(x | z_1), no sample attached."""
-        pxz = self.decoder(z1)
-        return DistributionTuple(pxz, None, axes=pxz.event_axes)
+    def decode(self, z1: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise=None) -> DistributionTuple:
+        """p(x | z_1), with an x sample attached when ``generator`` or
+        ``noise`` is given (``observe``)."""
+        return observe(self.decoder(z1), generator, noise)
 
     def decode_down(self, Qs: Tuple[DistributionTuple, ...]):
         """The generative conditionals p(z_i | z_{i+1}) evaluated at the
@@ -156,13 +182,16 @@ class VAE(nn.Module):
                    for i, block in enumerate(self.mlp_decoders))
         return Ps, self.decode(Qs[0].z)
 
-    def generate(self, z_top: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> DistributionTuple:
-        """Ancestral sampling z_L -> ... -> z_1, then p(x | z_1)."""
+    def generate(self, z_top: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise=None) -> DistributionTuple:
+        """Ancestral sampling z_L -> ... -> z_1, then p(x | z_1) with an x
+        sample. ``noise``: the standard normals of z_{L-1} .. z_1, then the
+        x draw's noise (``generative_noise``)."""
+        layer_noise, obs_noise = generative_noise(noise, len(self.mlp_decoders) + 1)
         z = z_top
-        for block in reversed(self.mlp_decoders):
-            z = block(z).sample(generator)
-        return self.decode(z)
+        for block, eps in zip(reversed(self.mlp_decoders), layer_noise):
+            z = block(z).sample(generator, noise=eps)
+        return self.decode(z, generator, obs_noise)
 
     def forward(self, x: torch.Tensor, n_samples: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, eps: Noise = None):

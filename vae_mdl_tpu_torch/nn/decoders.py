@@ -97,8 +97,8 @@ def ladder_observation(module: nn.Module, z1: torch.Tensor) -> DistributionTuple
     """The observation decode of both ladder families: ``module.obs_up``
     upsamples z_1 ``[..., h, w, c]`` to the image's resolution, the float32
     head ``module.obs_head`` gives the likelihood's parameters, and
-    ``make_observation`` turns them into p(x | z_1). As the VAE's ``decode``,
-    it attaches no x sample. The head's output reaches the likelihood as a
+    ``make_observation`` turns them into p(x | z_1). It attaches no x sample:
+    the ladders' ``decode`` does that where asked. The head's output reaches the likelihood as a
     ``[..., H, W, C]`` view of its NCHW result, channels-last memory on a
     card: for "dl" the two halves of one dense channel-minor tensor, which is
     what the kernels' tile path takes."""

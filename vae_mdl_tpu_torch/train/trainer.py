@@ -298,7 +298,9 @@ class Trainer:
     def report(self, step: int, n_grid: int = 8):
         """Log three image grids on the eval weights: the inputs, their
         reconstructions (the observation model's mean at one posterior
-        sample) and prior samples (a Gaussian observation model's mean)."""
+        sample) and prior samples (a Gaussian observation model's mean).
+        Returns the three as ``(x, recon, samples)``, ``[n_grid ** 2, H, W,
+        C]`` tensors on the trainer's device, for the CLI's asset PNGs."""
         cfg = self.cfg
         n = n_grid * n_grid
         x_raw = self._put(np.asarray(next(self.val_iter))[:n])
@@ -314,12 +316,10 @@ class Trainer:
             z_top = torch.randn((x.shape[0],) + tuple(top_shape), generator=rngs["rep_prior"],
                                 device=self.device)
             gen = apply(self.model, params, z_top, rngs["rep_prior"], method="generate")
-            if cfg.model.likelihood == "gaussian":
-                samples = _obs_mean(gen.dist)
-            else:
-                samples = gen.dist.sample(rngs["rep_prior"])
+            samples = _obs_mean(gen.dist) if cfg.model.likelihood == "gaussian" else gen.x
         for name, images in (("inputs", x), ("reconstructions", recon), ("samples", samples)):
             self.logger.image(step, name, fill_canvas(images.float().cpu().numpy(), n_grid))
+        return x, recon, samples
 
     # ------------------------------------------------------------------ test
 

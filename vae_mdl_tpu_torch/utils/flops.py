@@ -52,9 +52,12 @@ _PARTS = {"NVIDIA H100 80GB HBM3": "H100 SXM", "NVIDIA H100 SXM5 80GB": "H100 SX
 
 def device_peaks(name: Optional[str] = None) -> Dict[str, float]:
     """``{"float32": FLOP/s, "bfloat16": FLOP/s, "bytes_per_s": B/s}`` of the
-    card called ``name`` (default: ``torch.cuda.get_device_name(0)``)."""
+    card called ``name`` (default: ``torch.cuda.get_device_name(0)``) or of
+    the part called ``name`` ("H100 SXM")."""
     if name is None:
         name = torch.cuda.get_device_name(0)
+    if name in _PEAKS:
+        return dict(_PEAKS[name])
     if name not in _PARTS:
         raise ValueError(f"no published peaks recorded for {name!r}; known: {sorted(_PARTS)}")
     return dict(_PEAKS[_PARTS[name]])
