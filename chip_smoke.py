@@ -190,6 +190,40 @@ and nothing falls back to a plain version.
    the live model's parameter count, the card's own peak; (f) ``parity
    model05 --allow-synthetic``: a strict JSON report with the JAX report's
    keys. It prints one ``cli:`` JSON line.
+15. the parallel paths (``vae_mdl_tpu_torch/parallel/``), model05 at full
+   width (f32, batch 128, k = 5), every MoDL launch on the tile path: (a) a
+   world of one over NCCL (``init_distributed`` on a FileStore,
+   ``make_mesh(MeshConfig())``): one step each of ``make_train_step``,
+   ``make_shard_map_train_step`` and ``make_zero1_train_step`` from one
+   state, batch and injected noise under phase 13's cuDNN flags, the loss,
+   every parameter and both Adam moments (ZeRO-1's unflattened) within
+   ``PARALLEL_RTOL``; then 10 steps a call of each, in turns, with every
+   count set to 0 just before each call and read just after (the
+   ``model05 dp`` and ``model05 zero1`` paths): median imgs/s of 5 calls,
+   peak memory and the gap against the plain step's rate; and
+   ``evaluate_llh(mesh=)`` at 5000 samples on 256 images, through
+   ``make_batch_evaluator(mesh=)`` (``model05 sharded eval``); (b) two
+   processes of this script (``--rank``) on the one card over gloo, which
+   takes CUDA tensors where NCCL refuses two ranks a device: the
+   data-parallel and ZeRO-1 steps on 64 rows and the matching half of the
+   noise each, held against (a)'s one-rank step on all 128 (the loss within
+   ``SUM_RTOL``, the moments within ``GRAD_RTOL``, the parameters within
+   ``TWO_RANK_PARAM_ATOL`` and ``TWO_RANK_PARAM_SHARE`` of them within
+   ``TWO_RANK_PARAM_CLOSE``) and bit-equal across the ranks; one step of
+   the tensor-parallel layout (``make_tp_mesh(1, ranks)``,
+   ``shard_state_tp``: model05's wide convs and dense layer keep their
+   share of the output channels, their outputs gathered over the ranks) on
+   all 128 rows, held against the one-rank step the same way (its moments
+   within ``TP_GRAD_RTOL``), its MoDL
+   launches on the tile path (``model05 tp``); then ``evaluate_llh``
+   striped over them (``model05 striped eval``), its per-image LLH
+   bit-equal to (a)'s; where there are two cards or more the same checks at
+   min(cards, 4) ranks over NCCL, one card each, and the data-parallel and
+   ZeRO-1 rates with a batch of 128 on every rank; (c) ``Trainer(cfg,
+   mesh=make_mesh(...))`` at a world of one (``model05 mesh trainer``) on
+   ``synthetic:svhn_cropped``, 20 steps with EMA, the loss finite and
+   falling, checkpointed, and a resumed ``Trainer`` whose state equals it
+   bit for bit. It prints one ``parallel:`` JSON line.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -2465,6 +2499,528 @@ def _phase_cli(root: str, smi: str) -> dict:
     return counts
 
 
+# -- phase 15: the parallel paths -----------------------------------------------------
+
+# One rank against one rank on the same rows and noise under cuDNN's
+# deterministic flags runs the same operations: the one-rank data-parallel
+# and ZeRO-1 steps add only an all-reduce (or a reduce-scatter and an
+# all-gather) of one rank, and ZeRO-1's optimizer runs the same element-wise
+# arithmetic on the flat vector. Held per element within PARALLEL_RTOL
+# (measured bit-equal on the H100).
+PARALLEL_RTOL = 1e-6
+# Two ranks of 64 rows against one rank of 128 on the same noise: the mean of
+# two per-rank float32 sums against one sum. The loss within SUM_RTOL; each
+# first moment (0.1 g after one step) within GRAD_RTOL of the one-rank step's
+# in norm, each second moment (1e-3 g^2) within 2 GRAD_RTOL; each parameter
+# within 2 lr: a first Adam step moves an element by lr g / (|g| + eps),
+# whose sign can differ where g is ~0; and TWO_RANK_PARAM_SHARE of all the
+# elements within TWO_RANK_PARAM_CLOSE (measured at most 4.8e-6), so that a
+# step that moved no parameter, by lr each, fails.
+TWO_RANK_PARAM_ATOL = 2e-3
+TWO_RANK_PARAM_CLOSE = 1e-5
+TWO_RANK_PARAM_SHARE = 0.99
+# The tensor-parallel step's moments within TP_GRAD_RTOL a leaf in norm (nu
+# within twice it): at four ranks model05's decoder.conv_1, a transposed
+# conv, runs on 16 of its 64 output channels, and cuDNN's input gradient for
+# that shape sits 1.4e-4 from float64 against 2.4e-7 at 32 channels
+# (probes/tp_precision.py on the H100); every leaf upstream of it carries
+# that (2.2e-4 at four ranks, 1.2e-6 at two). A gather whose backward sums
+# is off by the rank count, an input gradient not summed by far more.
+TP_GRAD_RTOL = 1e-3
+PARALLEL_EVAL_IMAGES = 256
+PARALLEL_CHILD_TIMEOUT = 300
+
+
+def _cpu_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def _step_outcome(state, metrics, opt_state=None):
+    """(loss, params, Adam mu and nu by parameter name) on the host."""
+    from vae_mdl_tpu_torch.parallel.spmd import FLAT
+
+    opt = state.opt_state if opt_state is None else opt_state
+    mu, nu = opt["mu"], opt["nu"]
+    if set(mu) == {FLAT}:  # ZeRO-1's whole flat moments, unflattened
+        sizes = [p.numel() for p in state.params.values()]
+        n = sum(sizes)
+
+        def unflat(flat):
+            return {name: part.view_as(p) for (name, p), part in
+                    zip(state.params.items(), flat[FLAT][:n].split(sizes))}
+
+        mu, nu = unflat(mu), unflat(nu)
+    return (float(metrics["loss"]), _cpu_tree(dict(state.params)), _cpu_tree(mu),
+            _cpu_tree(nu))
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    return max(float(((a[n] - b[n]).abs() / b[n].abs().clamp(min=1e-30)).max()) for n in b)
+
+
+def _leaf_norm_rel(a: dict, b: dict) -> float:
+    return max(_leaf_norm_rels(a, b).values())
+
+
+def _leaf_norm_rels(a: dict, b: dict) -> dict:
+    return {n: float((a[n] - b[n]).norm() / b[n].norm().clamp(min=1e-30)) for n in b}
+
+
+def _deterministic(fn, *args):
+    """``fn(*args)`` under phase 13's cuDNN flags, put back after."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn(*args)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _parallel_trainer(kind: str, mesh):
+    """model05's seeded state and its step of ``kind`` ("plain", "dp" or
+    "zero1"; ZeRO-1's state holds this rank's flat moments) -> (state,
+    step, multi): ``step(state, batch, eps=None)`` is one step,
+    ``multi(state, batches)`` one step a batch."""
+    from vae_mdl_tpu_torch.parallel.spmd import (
+        make_shard_map_train_step, make_zero1_train_step, zero1_opt_state)
+
+    cfg = experiment("model05")
+    model = seeded_model(cfg.model)
+    tx = make_optimizer(cfg.train)
+    state = create_train_state(model, cfg.train)
+    if kind == "plain":
+        return (state, make_train_step(model, cfg, tx),
+                make_multi_train_step(model, cfg, tx, TRAIN_STEPS_PER_CALL))
+    if kind == "dp":
+        return (state, make_shard_map_train_step(model, cfg, tx, mesh),
+                make_multi_train_step(model, cfg, tx, TRAIN_STEPS_PER_CALL, mesh=mesh))
+    state.opt_state = zero1_opt_state(tx, state.params, mesh)
+    step = make_zero1_train_step(model, cfg, tx, mesh)
+
+    def multi(state, batches):
+        for b in batches:
+            state, metrics = step(state, b)
+        return state, metrics
+
+    return state, step, multi
+
+
+def _parallel_steps(mesh, batch, eps, rows=None):
+    """One step each of the plain step (on every row; where ``rows`` is
+    given, skipped), the data-parallel step and ZeRO-1 (on ``rows``, the
+    batch's by default) from model05's seeded state, with ``eps`` (the whole
+    batch's noise) injected. -> {kind: _step_outcome}."""
+    from vae_mdl_tpu_torch.parallel.spmd import gather_zero1_opt_state
+
+    out = {}
+    for kind in ("dp", "zero1") if rows is not None else ("plain", "dp", "zero1"):
+        state, step, _ = _parallel_trainer(kind, mesh)
+        state, metrics = step(state, batch if rows is None else rows, eps=eps)
+        out[kind] = _step_outcome(state, metrics, gather_zero1_opt_state(state.opt_state)
+                                  if kind == "zero1" else None)
+    return out
+
+
+def _tp_step(batch, eps):
+    """One step of model05 in the tensor-parallel layout over every rank
+    (``make_tp_mesh(1, world)``) on all of ``batch``, ``eps`` injected ->
+    (_step_outcome of the whole state, the names of the sharded parameters)."""
+    from vae_mdl_tpu_torch.parallel.distributed import process_count
+    from vae_mdl_tpu_torch.parallel.tensor import make_tp_mesh, shard_state_tp
+    from vae_mdl_tpu_torch.train.checkpoint import whole_state_dict
+
+    cfg = experiment("model05")
+    model = seeded_model(cfg.model)
+    tx = make_optimizer(cfg.train)
+    state = shard_state_tp(create_train_state(model, cfg.train),
+                           make_tp_mesh(1, process_count()), model=model)
+    state, metrics = make_train_step(model, cfg, tx)(state, batch, eps=eps)
+    whole = whole_state_dict(state)
+    opt = whole["opt_state"]
+    return ((float(metrics["loss"]), _cpu_tree(whole["params"]), _cpu_tree(opt["mu"]),
+             _cpu_tree(opt["nu"])), sorted(state.tp_layout.dims))
+
+
+def parallel_child(rank: int, world: int, store: str, out_dir: str, backend: str) -> None:
+    """One rank of phase 15 (b): the data-parallel and ZeRO-1 steps on this
+    rank's rows, the tensor-parallel step on all of them, then
+    ``evaluate_llh`` striped over the ranks; writes
+    ``out_dir/rank<r>.pt``."""
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    init_distributed(f"file://{store}", world, rank, backend=backend, timeout=240)
+    try:
+        # phase_device's flags: the float32 config means float32 convolutions
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh(MeshConfig())
+        cfg = experiment("model05")
+        batch = torch.as_tensor(images(BATCH), device="cuda")
+        eps = seeded_noise(cfg.model)[0]
+        reset_probe_counts()
+        steps = _deterministic(_parallel_steps, mesh, batch, eps, shard_batch(mesh, batch))
+        step_counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path),
+                       "backward tiled": dict(mdl_kernel.backward_launches_by_path)}
+        reset_probe_counts()
+        tp = _deterministic(_tp_step, batch, eps)
+        tp_counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path),
+                     "backward tiled": dict(mdl_kernel.backward_launches_by_path)}
+        model = seeded_model(cfg.model)
+        _deterministic(_warm_eval, model, cfg)
+        reset_probe_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, per_image, metrics = _deterministic(
+            evaluate_llh, model, cfg, images(PARALLEL_EVAL_IMAGES), 5000, 100, BATCH, SEED)
+        seconds = time.perf_counter() - t0
+        eval_counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path)}
+        rates = _rank_rates(mesh) if "nccl" in backend else None
+        torch.save({"steps": steps, "step_counts": step_counts, "tp": tp,
+                    "tp_counts": tp_counts, "per_image": per_image,
+                    "local_batches": metrics["local_batches"], "eval_seconds": seconds,
+                    "eval_counts": eval_counts, "device": torch.cuda.current_device(),
+                    "rates": rates},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _warm_eval(model, cfg) -> None:
+    """Two k-chunks of the evaluator on one batch, outside any process
+    group's striping: a fresh process's first launches at the eval's shapes
+    (cuDNN's choices, the kernels' loading) stay out of the timed run."""
+    make_batch_evaluator(model, cfg, 200, 100)(
+        torch.as_tensor(images(BATCH), device="cuda"),
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+
+
+def _rank_rates(mesh) -> dict:
+    """Data-parallel and ZeRO-1 training of model05 with a batch of 128 on
+    every rank (the global batch 128 x ranks), 10 steps a call: this rank's
+    median ms of 5 calls after a warm-up, by CUDA events."""
+    pool = train_pool()
+    out = {}
+    for kind in ("dp", "zero1"):
+        state, _, multi = _parallel_trainer(kind, mesh)
+        ms = []
+        for call in range(TRAIN_BLOCKS + 1):
+            (state, _), seconds = cuda_seconds(lambda: multi(state, pool))
+            if call:
+                ms.append(seconds * 1e3)
+        out[kind] = float(np.median(ms))
+    return out
+
+
+def spawn_ranks(world: int, backend: str, work: str) -> list:
+    """``world`` processes of this script, each one rank of ``backend``'s
+    group (gloo: all on card 0; with NCCL: one card each); every process is
+    waited for or killed. -> their outputs in rank order."""
+    os.makedirs(work, exist_ok=True)
+    store = os.path.join(work, "store")
+    procs = []
+    try:
+        for rank in range(world):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+            env["LOCAL_RANK"] = "0" if backend == "gloo" else str(rank)
+            with open(os.path.join(work, f"rank{rank}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    ["python3", os.path.abspath(__file__), "--rank", str(rank), "--world",
+                     str(world), "--store", store, "--out", work, "--backend", backend],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PARALLEL_CHILD_TIMEOUT
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = []
+    for rank in range(len(procs)):
+        with open(os.path.join(work, f"rank{rank}.log")) as log:
+            logs.append(log.read())
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 15: rank {rank} of {world} ({backend}) failed (exit "
+                                 f"{p.returncode}; killed after {PARALLEL_CHILD_TIMEOUT} s if "
+                                 f"negative):\n{log[-6000:]}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _check_tiled(counts: dict, backward: bool, what: str) -> None:
+    _took(counts["tiled"], "tiled", f"{what}'s MoDL forward")
+    if backward:
+        _took(counts["backward tiled"], "tiled", f"{what}'s MoDL backward")
+
+
+def _two_rank_check(ranks: list, one: dict, what: str) -> dict:
+    """Each rank's data-parallel, ZeRO-1 and tensor-parallel step against
+    the one-rank data-parallel step on all rows; the ranks' parameters
+    bit-equal."""
+    report = {}
+    for kind in ("dp", "zero1", "tp"):
+        got = [out["tp"][0] if kind == "tp" else out["steps"][kind] for out in ranks]
+        loss, params, mu, nu = got[0]
+        want_loss, want_params, want_mu, want_nu = one["dp"]
+        for other in got[1:]:
+            if any(not torch.equal(other[1][n], params[n]) for n in params):
+                raise AssertionError(f"{what} {kind}: the ranks' parameters differ")
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        diff = torch.cat([(params[n] - want_params[n]).abs().flatten() for n in params])
+        param_abs = float(diff.max())
+        close = float((diff <= TWO_RANK_PARAM_CLOSE).float().mean())
+        mu_rels = _leaf_norm_rels(mu, want_mu)
+        mu_rel, nu_rel = max(mu_rels.values()), _leaf_norm_rel(nu, want_nu)
+        report[kind] = {"loss_rel": loss_rel, "param_max_abs": param_abs,
+                        "param_share_close": close,
+                        "mu_leaf_norm_rel": mu_rel, "nu_leaf_norm_rel": nu_rel,
+                        "mu_worst_leaf": max(mu_rels, key=mu_rels.get)}
+        grad_rtol = TP_GRAD_RTOL if kind == "tp" else GRAD_RTOL
+        if (loss_rel > SUM_RTOL or param_abs > TWO_RANK_PARAM_ATOL
+                or close < TWO_RANK_PARAM_SHARE or mu_rel > grad_rtol
+                or nu_rel > 2 * grad_rtol):
+            raise AssertionError(f"{what} {kind} against the one-rank step: {report[kind]}")
+    report["tp"]["sharded"] = ranks[0]["tp"][1]
+    return report
+
+
+def phase_parallel(smi: str):
+    """Phase 15, the parallel paths; see the module docstring. -> {path: kernel
+    launches}."""
+    import torch.distributed as dist
+
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+
+    with tempfile.TemporaryDirectory() as root:
+        init_distributed(f"file://{root}/store", world_size=1, rank=0)
+        try:
+            return _phase_parallel(root, smi)
+        finally:
+            dist.destroy_process_group()
+
+
+def _phase_parallel(root: str, smi: str) -> dict:
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig())
+    by_path, report = {}, {"card": smi, "backend_world_of_one": str(
+        torch.distributed.get_backend())}
+    cfg = experiment("model05")
+    batch = torch.as_tensor(images(BATCH), device="cuda")
+    eps = seeded_noise(cfg.model)[0]
+
+    # (a) a world of one over NCCL: the three steps agree
+    one = _deterministic(_parallel_steps, mesh, batch, eps)
+    worst = {}
+    for kind in ("dp", "zero1"):
+        loss, params, mu, nu = one[kind]
+        want = one["plain"]
+        worst[kind] = {"loss_rel": abs(loss - want[0]) / abs(want[0]),
+                       "params": _max_rel(params, want[1]), "mu": _max_rel(mu, want[2]),
+                       "nu": _max_rel(nu, want[3])}
+        if max(worst[kind].values()) > PARALLEL_RTOL:
+            raise AssertionError(f"parallel (a): the one-rank {kind} step against the plain "
+                                 f"step: {worst[kind]}")
+    say(f"parallel (a): one rank over {report['backend_world_of_one']}: the data-parallel "
+        f"and ZeRO-1 steps against make_train_step, largest relative differences {worst} "
+        f"(tolerance {PARALLEL_RTOL})")
+    report["world_of_one_max_rel"] = worst
+
+    # (a) rates: 10 steps a call of each step, in turns, every count set to 0
+    # just before each call and read just after
+    pool = train_pool()
+    steps, states, totals = {}, {}, {}
+    for kind in ("plain", "dp", "zero1"):
+        states[kind], _, steps[kind] = _parallel_trainer(kind, mesh)
+    block_ms = {kind: [] for kind in steps}
+    peak = {}
+    first, last = {}, {}
+    for block in range(TRAIN_BLOCKS + 1):
+        order = list(steps) if block % 2 == 0 else list(reversed(steps))
+        for kind in order:
+            reset_probe_counts()
+            torch.cuda.reset_peak_memory_stats()
+            (states[kind], metrics), seconds = cuda_seconds(
+                lambda kind=kind: steps[kind](states[kind], pool))
+            counts = probe_counts()
+            counts["tiled"] = dict(mdl_kernel.launches_by_path)
+            counts["backward tiled"] = dict(mdl_kernel.backward_launches_by_path)
+            _check_tiled(counts, True, f"parallel (a) {kind}")
+            if kind != "plain":
+                total = totals.setdefault(kind, {})
+                for name, n in counts.items():
+                    if isinstance(n, int):
+                        total[name] = total.get(name, 0) + n
+                total["mdl_log_prob tiled"] = total.get("mdl_log_prob tiled", 0) + \
+                    counts["tiled"]["tiled"]
+            if block == 0:
+                first[kind] = float(metrics["loss"])
+                continue
+            block_ms[kind].append(seconds * 1e3)
+            peak[kind] = max(peak.get(kind, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            last[kind] = float(metrics["loss"])
+    rates = {kind: TRAIN_STEPS_PER_CALL * BATCH / (float(np.median(ms)) / 1e3)
+             for kind, ms in block_ms.items()}
+    for kind in rates:
+        if not (np.isfinite(first[kind]) and np.isfinite(last[kind])) or last[kind] >= first[kind]:
+            raise AssertionError(f"parallel (a) {kind}: loss {first[kind]} -> {last[kind]}")
+    for kind in ("dp", "zero1"):
+        _only(totals[kind], ("mdl_log_prob", "mdl_log_prob_backward", "mdl_log_prob tiled"),
+              f"the model05 {kind} path")
+        by_path[f"model05 {kind}"] = totals[kind]
+    report.update({
+        "imgs_per_sec": rates, "peak_gib": peak,
+        "gap_vs_plain": {k: 1.0 - rates[k] / rates["plain"] for k in ("dp", "zero1")},
+        "block_ms": block_ms, "loss_first_last": {k: (first[k], last[k]) for k in rates}})
+    say(f"parallel (a): imgs/s (median of {TRAIN_BLOCKS} calls of {TRAIN_STEPS_PER_CALL} steps, "
+        f"in turns) {rates}; peak GiB {peak}; on {smi}")
+
+    # the sharded 5000-IS evaluator at a world of one: the reference for (b)
+    model = seeded_model(cfg.model)
+    _deterministic(_warm_eval, model, cfg)
+    reset_probe_counts()
+    images_eval = images(PARALLEL_EVAL_IMAGES)
+    (llh, per_image, _), seconds = _deterministic(cuda_seconds, lambda: evaluate_llh(
+        model, cfg, images_eval, n_samples=5000, k_chunk=100, batch_size=BATCH, seed=SEED,
+        mesh=mesh))
+    counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path)}
+    _check_tiled(counts, False, "the sharded evaluator")
+    counts["mdl_log_prob tiled"] = counts.pop("tiled")["tiled"]
+    _only(counts, ("mdl_log_prob", "mdl_log_prob tiled"), "the sharded evaluator")
+    by_path["model05 sharded eval"] = counts
+    report["sharded_eval_one_rank"] = {"llh": llh, "imgs_per_sec": PARALLEL_EVAL_IMAGES / seconds}
+
+    # (b) two processes on the one card over gloo on CUDA tensors
+    report["two_process_backend"] = "gloo (NCCL takes one rank a card)"
+    say("parallel (b): two ranks on card 0 over gloo, which takes CUDA tensors; NCCL refuses "
+        "two ranks on one device")
+    ranks = spawn_ranks(2, "gloo", os.path.join(root, "gloo2"))
+    for r, out in enumerate(ranks):
+        _check_tiled(out["step_counts"], True, f"parallel (b) rank {r}'s steps")
+        _check_tiled(out["tp_counts"], True, f"parallel (b) rank {r}'s tensor-parallel step")
+        _check_tiled(out["eval_counts"], False, f"parallel (b) rank {r}'s striped evaluation")
+    report["two_process_vs_one_rank"] = _two_rank_check(ranks, one, "parallel (b)")
+    tp_counts = {}
+    for out in ranks:
+        for name, n in out["tp_counts"].items():
+            if isinstance(n, int):
+                tp_counts[name] = tp_counts.get(name, 0) + n
+        tp_counts["mdl_log_prob tiled"] = tp_counts.get("mdl_log_prob tiled", 0) + \
+            out["tp_counts"]["tiled"]["tiled"]
+    _only(tp_counts, ("mdl_log_prob", "mdl_log_prob_backward", "mdl_log_prob tiled"),
+          "the tensor-parallel step")
+    by_path["model05 tp"] = tp_counts
+    for r, out in enumerate(ranks):
+        if not np.array_equal(out["per_image"], per_image):
+            diff = float(np.max(np.abs(out["per_image"] - per_image)))
+            raise AssertionError(f"parallel (b): rank {r}'s striped per-image LLH differs from "
+                                 f"one process's by up to {diff}")
+    if sorted(out["local_batches"] for out in ranks) != [1, 1]:
+        raise AssertionError("parallel (b): the striped evaluation did not split its batches")
+    striped = {}
+    for out in ranks:
+        for name, n in out["eval_counts"].items():
+            if isinstance(n, int):
+                striped[name] = striped.get(name, 0) + n
+        striped["mdl_log_prob tiled"] = striped.get("mdl_log_prob tiled", 0) + \
+            out["eval_counts"]["tiled"]["tiled"]
+    _only(striped, ("mdl_log_prob", "mdl_log_prob tiled"), "the striped evaluation")
+    by_path["model05 striped eval"] = striped
+    report["striped_eval"] = {"per_image_bit_equal": True,
+                              "rank_seconds": [out["eval_seconds"] for out in ranks],
+                              "one_rank_seconds": seconds}
+    say(f"parallel (b): two gloo ranks against one rank: {report['two_process_vs_one_rank']}; "
+        f"the striped 5000-IS per-image LLH of {PARALLEL_EVAL_IMAGES} images bit-equal to one "
+        f"process's (llh {llh!r}); rank seconds {report['striped_eval']['rank_seconds']}, one "
+        f"rank {seconds:.2f} s")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world = min(n_cards, 4)
+        # the library's own backend: NCCL for the card's tensors, gloo for
+        # the evaluation's host tensors
+        nccl = spawn_ranks(world, "cpu:gloo,cuda:nccl", os.path.join(root, f"nccl{world}"))
+        report[f"nccl_{world}_vs_one_rank"] = _two_rank_check(nccl, one,
+                                                              f"parallel (b) nccl x{world}")
+        for r, out in enumerate(nccl):
+            _check_tiled(out["step_counts"], True, f"parallel (b) nccl rank {r}'s steps")
+            _check_tiled(out["tp_counts"], True, f"parallel (b) nccl rank {r}'s TP step")
+            if not np.array_equal(out["per_image"], per_image):
+                raise AssertionError(f"parallel (b): nccl rank {r}'s striped per-image LLH "
+                                     "differs from one process's")
+        slowest = {kind: max(out["rates"][kind] for out in nccl) for kind in ("dp", "zero1")}
+        report[f"nccl_{world}_imgs_per_sec"] = {
+            kind: world * TRAIN_STEPS_PER_CALL * BATCH / (ms / 1e3)
+            for kind, ms in slowest.items()}
+        report[f"nccl_{world}_eval_seconds"] = [out["eval_seconds"] for out in nccl]
+        say(f"parallel (b): {world} ranks over NCCL, one card each, batch {BATCH} a rank: "
+            f"{report[f'nccl_{world}_imgs_per_sec']} imgs/s (the slowest rank's median); "
+            f"one card's plain step {rates['plain']:.1f}; striped eval seconds a rank "
+            f"{report[f'nccl_{world}_eval_seconds']}")
+    else:
+        say("parallel (b): one card, so (a)'s checks at a world of several over NCCL do not run")
+
+    # (c) Trainer(cfg, mesh=...) at a world of one: 20 steps with EMA, checkpointed,
+    # and a resume that restores the state exactly
+    by_path["model05 mesh trainer"], report["trainer"] = _deterministic(
+        _mesh_trainer, root, make_mesh(MeshConfig()))
+    say("parallel: " + json.dumps(report))
+    return by_path
+
+
+def _mesh_trainer(root, mesh):
+    base = trainer_config(f"{root}/trainer", n_updates=20)
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, eval_interval=10, snapshot_interval=0, report_images=False))
+    reset_probe_counts()
+    trainer = Trainer(cfg, mesh=mesh)
+    losses = []
+    step = trainer.train_step
+
+    def recording(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+
+    trainer.train_step = recording
+    t0 = time.perf_counter()
+    state = trainer.fit(progress=False)
+    seconds = time.perf_counter() - t0
+    counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path),
+              "backward tiled": dict(mdl_kernel.backward_launches_by_path)}
+    _check_tiled(counts, True, "the mesh trainer")
+    counts["mdl_log_prob tiled"] = counts.pop("tiled")["tiled"]
+    counts.pop("backward tiled")
+    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward", "mdl_log_prob tiled"),
+          "the mesh trainer")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if len(losses) != 20 or not np.isfinite(losses).all() or tail >= head:
+        raise AssertionError(f"parallel (c): losses {losses} are not finite and falling")
+    resumed = Trainer(cfg, mesh=mesh)
+    exact = states_equal(resumed.state, state)
+    if not exact:
+        raise AssertionError(f"parallel (c): the resume differs: "
+                             f"{first_difference(resumed.state, state)}")
+    report = {"steps": state.step, "seconds": seconds, "loss_first5_last5": (head, tail),
+              "best_val_loss": state.best_val_loss, "resume_bit_equal": exact}
+    say(f"parallel (c): Trainer(cfg, mesh=make_mesh(...)) model05 f32, 20 steps with EMA: "
+        f"loss {head:.4f} (first 5) -> {tail:.4f} (last 5), best {state.best_val_loss:.4f}, "
+        f"{seconds:.1f} s; the resumed Trainer's state equals it bit for bit")
+    return counts, report
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -2501,6 +3057,7 @@ def main() -> None:
     by_path.update(ladder_counts)
     by_path["model05 trainer"] = timed("training run", phase_trainer, smi)
     by_path["model05 cli"] = timed("CLI", phase_cli, smi)
+    by_path.update(timed("parallel", phase_parallel, smi))
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -2589,4 +3146,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if "--rank" in sys.argv:  # one rank of phase 15 (b), started by spawn_ranks
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        parallel_child(int(args["--rank"]), int(args["--world"]), args["--store"],
+                       args["--out"], args["--backend"])
+    else:
+        main()

@@ -139,7 +139,12 @@ def test_snapshots_rotate_and_prune(tmp_path):
     assert ckpt.snapshots() == ["step_41", "step_101"]
     assert ckpt.has("latest") and ckpt.has("best")
     with open(os.path.join(ckpt._path("step_41"), "meta.json")) as f:
-        assert json.load(f) == {"step": 41, "has_ema": False}
+        record = json.load(f)
+    # meta.json also records the optimizer state's shapes (metadata_tree)
+    assert {k: record[k] for k in ("step", "has_ema")} == {"step": 41, "has_ema": False}
+    assert record["shapes"]["opt_state"]["count"] == {"shape": []}
+    assert ckpt.metadata_tree("step_41")["opt_state"]["mu"]["decoder.Dense_0.weight"] == \
+        torch.Size([200, 100])
     _, target = _fresh(_cfg())
     assert ckpt.restore(target, "step_41").step == 41
 

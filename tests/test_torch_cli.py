@@ -146,8 +146,12 @@ def test_cli_describe_text_and_mesh(capsys):
     out = capsys.readouterr().out
     assert "parameters       1,035,962" in out and "TFLOP/step" in out and "ceiling" in out
     assert "v5e" not in out
-    with pytest.raises(SystemExit, match="parallel"):
-        main(["describe", "model01", "--mesh", "4x2"])
+    main(["describe", "model01", "--mesh", "4x2"])  # a plan, as in JAX; nothing runs
+    out = capsys.readouterr().out
+    assert "(data=4, sample=2, model=1) = 8 ranks" in out
+    assert "train batch    128 -> 16 per rank" in out and "torchrun --nproc-per-node 8" in out
+    with pytest.raises(SystemExit, match="components must be >= 1"):
+        main(["describe", "model01", "--mesh", "4x0"])
 
 
 def test_cli_train_end_to_end(tmp_path, monkeypatch):
@@ -260,7 +264,8 @@ def test_cli_parity_refuses_synthetic_and_missing_data(tmp_path, monkeypatch):
 
 def test_device_defaults_to_the_card_and_raises_here(tmp_path, monkeypatch):
     """No command carries on on the CPU in place of a missing card; ``--pallas``
-    with ``--device cpu`` raises; ``--mesh`` takes only ``none``."""
+    with ``--device cpu`` raises; a ``--mesh`` of several ranks in a single
+    process says how to start them (``parallel/distributed.py``)."""
     if torch.cuda.is_available():
         pytest.skip("checks the refusal where there is no card")
     monkeypatch.chdir(tmp_path)

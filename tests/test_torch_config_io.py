@@ -1,7 +1,8 @@
 """The port's config serialization against the JAX package's: every zoo
 entry round-trips, a config.json written by either package loads in the
-other equal field for field, unknown fields and a non-default mesh are
-named errors, and diff_configs gives dotted paths.
+other equal field for field, any mesh section round-trips under the JAX
+field names, unknown fields are named errors, and diff_configs gives
+dotted paths.
 
 Tolerance: none; configs are compared for equality.
 """
@@ -63,14 +64,23 @@ def test_a_jax_written_config_loads_in_the_port_and_back(name, tmp_path):
 
 
 def test_the_mesh_section():
+    """Any mesh section reads back into MeshConfig, and a JAX-written one
+    loads in the port and back, equal."""
+    from vae_mdl_tpu import config as jconfig
+    from vae_mdl_tpu_torch.config import MeshConfig
+
     d = config_to_dict(experiment("model05"))
     assert d["mesh"] == {"data": -1, "sample": 1, "model": 1}
     assert config_from_dict({k: v for k, v in d.items() if k != "mesh"}) == experiment("model05")
     assert config_from_dict(dict(d, mesh={"data": -1})) == experiment("model05")
     for mesh in ({"data": 2, "sample": 1, "model": 1}, {"data": -1, "sample": 4, "model": 1},
-                 {"data": -1, "sample": 1, "model": 2}):
-        with pytest.raises(ValueError, match=r"'mesh'.*single-device default"):
-            config_from_dict(dict(d, mesh=mesh))
+                 {"data": 2, "sample": 2, "model": 2}):
+        cfg = config_from_dict(dict(d, mesh=mesh))
+        assert cfg.mesh == MeshConfig(**mesh)
+        assert config_to_dict(cfg)["mesh"] == mesh
+        jcfg = dataclasses.replace(jax_experiment("model05"), mesh=jconfig.MeshConfig(**mesh))
+        assert config_from_dict(_jax_dict(jcfg)) == cfg
+        assert jconfig_io.config_from_dict(config_to_dict(cfg)) == jcfg
     with pytest.raises(ValueError, match=r"'mesh'.*unknown field.*pipeline"):
         config_from_dict(dict(d, mesh={"data": -1, "pipeline": 2}))
 

@@ -88,7 +88,7 @@ def test_trainer_runs_on_the_card_unless_given_the_cpu(tmp_path):
         Trainer(_tiny_cfg(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(_tiny_cfg(tmp_path))
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(TypeError, match="make_mesh"):
         Trainer(_tiny_cfg(tmp_path), device="cpu", mesh=object())
 
 

@@ -5,7 +5,7 @@ neither it nor jax. Module paths mirror the JAX package's, and public
 functions keep its layouts: images ``[B, H, W, C]``, MoDL parameters
 ``[k, B, H, W, 10 * n_mix]``, log-weights ``[k, B]``.
 
-Ported so far, for one process on one device: every model of the zoo
+Ported: every model of the zoo
 (model01-06, ``digits`` and the ladder families) with its train and eval
 steps, optimizers and train state (``models/``, ``nn/``, ``train/``); the
 training run as users start it, ``train.trainer.Trainer`` with its data
@@ -19,8 +19,10 @@ probes (``probes/``, ``utils/timing.py``, ``utils/flops.py``); and how users
 start it: the CLI (``cli/run.py``, ``python -m vae_mdl_tpu_torch``),
 inference (``models/inference.py``), ``torch.export`` serving
 (``models/export.py``), the Keras reference-checkpoint import
-(``utils/import_reference.py``) and ``examples/``. The parallel paths are to
-come (ROADMAP.md).
+(``utils/import_reference.py``) and ``examples/``; and the parallel paths
+(``parallel/``: data-parallel, ZeRO-1 with elastic resume and tensor
+parallelism over ``torch.distributed``, one process a card, started by
+torchrun), through ``Trainer(mesh=)``, the evaluator and the CLI's ``--mesh``.
 
 Entry points run on the CUDA card and raise where there is none, unless the
 caller passes ``device="cpu"``.

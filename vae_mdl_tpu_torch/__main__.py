@@ -1,9 +1,11 @@
-"""``python -m vae_mdl_tpu_torch model05 --n-updates N``: the ``train``
-subcommand of the CLI (``cli/run.py``), as ``train_model.py`` is the JAX
-package's."""
+"""``python -m vae_mdl_tpu_torch [train] model05 --n-updates N``: the
+``train`` subcommand of the CLI (``cli/run.py``), as ``train_model.py`` is
+the JAX package's; under torchrun, ``torchrun --nproc-per-node N -m
+vae_mdl_tpu_torch train model05 --mesh N``."""
 import sys
 
 from vae_mdl_tpu_torch.cli.run import main
 
 if __name__ == "__main__":
-    main(["train"] + sys.argv[1:])
+    args = sys.argv[1:]
+    main(args if args[:1] == ["train"] else ["train"] + args)

@@ -23,7 +23,12 @@ Every command runs on the CUDA card (``--device cuda``, the default) and
 stops where there is none; ``--device cpu`` is the only way onto the CPU.
 ``--pallas`` / ``--no-pallas`` force the hand-written CUDA likelihood
 kernels or their plain versions (default: the kernels on the card).
-``--mesh`` takes only ``none``: the port's parallel paths are to come.
+Several ranks start under ``torchrun`` (``torchrun --nproc-per-node N -m
+vae_mdl_tpu_torch train model05 --mesh N``): ``train``, ``eval`` and
+``parity`` join the process group (``parallel.distributed.init_distributed``)
+and ``--mesh D|DxS|DxSxM`` lays the ranks out (``parallel.mesh.make_mesh``;
+without it, ``cfg.mesh`` where there are several ranks). Only rank 0 prints
+results and writes files.
 ``export`` writes a ``torch.export`` program (``.pt2``) for the device it
 runs on. ``describe`` builds the model on the CPU and launches nothing.
 """
@@ -137,11 +142,66 @@ def _base_config(args):
     return experiment(args.model)
 
 
-def _check_mesh(mesh_spec) -> None:
-    if mesh_spec not in (None, "none"):
+def _parse_mesh_spec(mesh_spec: str) -> tuple:
+    """``"D"``, ``"DxS"`` or ``"DxSxM"`` -> ``(data, sample, model)``.
+    Empty components default to 1 ("4x" == 4x1); anything else is a
+    SystemExit with the expected grammar. Shared by every command that
+    accepts --mesh so the describe preview validates exactly what
+    train/eval would accept."""
+    parts = mesh_spec.split("x")
+    if not 1 <= len(parts) <= 3:
         raise SystemExit(
-            f"--mesh {mesh_spec!r}: the PyTorch port runs on one device; its mesh paths "
-            "(parallel/) are to come. Leave --mesh out or pass --mesh none")
+            f"--mesh {mesh_spec!r}: expected D, DxS or DxSxM (e.g. 4, 4x2, "
+            "2x2x2)")
+    try:
+        vals = [int(p) if p else 1 for p in parts]
+    except ValueError:
+        raise SystemExit(
+            f"--mesh {mesh_spec!r}: components must be integers (or 'none')")
+    if any(v < 1 for v in vals):
+        raise SystemExit(
+            f"--mesh {mesh_spec!r}: components must be >= 1")
+    vals += [1] * (3 - len(vals))
+    return tuple(vals)
+
+
+def _make_mesh_or_none(mesh_spec, mesh_cfg, device: str):
+    """The mesh of ``--mesh`` (``none``: no mesh), or of the experiment's
+    ``MeshConfig`` where there are several ranks and no ``--mesh``. A
+    single process given ``--mesh 1`` becomes a world of one."""
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed, process_count
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    if mesh_spec == "none":
+        return None
+    if mesh_spec is None:
+        if process_count() == 1:
+            return None
+        cfg = mesh_cfg or MeshConfig()
+    else:
+        data, sample, model = _parse_mesh_spec(mesh_spec)
+        cfg = MeshConfig(data=data, sample=sample, model=model)
+        n = data * sample * model
+        if process_count() == 1 and n > 1:
+            raise SystemExit(
+                f"--mesh {mesh_spec!r}: {n} ranks wanted and this process is alone; start "
+                f"them with torchrun --nproc-per-node {n} (parallel/distributed.py)")
+        if process_count() == 1:
+            import tempfile
+
+            store = os.path.join(tempfile.mkdtemp(), "store")
+            init_distributed(f"file://{store}", world_size=1, rank=0, device=device)
+    try:
+        return make_mesh(cfg)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+
+
+def _is_rank0() -> bool:
+    from vae_mdl_tpu_torch.parallel.distributed import process_index
+
+    return process_index() == 0
 
 
 def _device(args) -> torch.device:
@@ -158,11 +218,20 @@ def _device(args) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _trainer(args, cfg):
+def _trainer(args, cfg, distributed: bool = False):
+    """The command's Trainer; ``distributed``: join the process group
+    first, where torchrun started this process, and lay the ranks out."""
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
     from vae_mdl_tpu_torch.train.trainer import Trainer
 
-    _check_mesh(args.mesh)
-    return Trainer(cfg, device=_device(args))
+    mesh = None
+    if distributed:
+        init_distributed(device=args.device)
+        mesh = _make_mesh_or_none(args.mesh, cfg.mesh, args.device)
+    elif args.mesh not in (None, "none"):
+        raise SystemExit(f"--mesh {args.mesh!r}: {args.cmd} runs on one device; train, "
+                         "eval and parity take a mesh (parallel/)")
+    return Trainer(cfg, device=_device(args), mesh=mesh)
 
 
 def _no_resume(cfg):
@@ -174,7 +243,7 @@ def _no_resume(cfg):
 
 def cmd_train(args) -> None:
     cfg = _apply_overrides(_base_config(args), args)
-    trainer = _trainer(args, cfg)
+    trainer = _trainer(args, cfg, distributed=True)
     if args.from_reference:
         if trainer.state.step != 0:
             raise SystemExit("--from-reference warm-starts a FRESH run, but a resumable "
@@ -184,7 +253,9 @@ def cmd_train(args) -> None:
         _maybe_bias_init(trainer)
 
     state = trainer.fit(profile_dir=args.profile)
-    print(f"[train] finished at step {state.step}, best val loss {state.best_val_loss:.4f}")
+    if _is_rank0():
+        print(f"[train] finished at step {state.step}, best val loss "
+              f"{state.best_val_loss:.4f}")
     # the best checkpoint goes into the assets and the final eval, as the
     # reference loads "best" before plotting
     if trainer.ckpt.has("best"):
@@ -212,15 +283,22 @@ def _import_reference(trainer, cfg, prefix: str, what: str) -> None:
 
 def _maybe_bias_init(trainer) -> None:
     """model01's decoder output bias from the mean of 8 training batches,
-    on a fresh run only (the reference's bias init)."""
+    on a fresh run only (the reference's bias init). Under a mesh each rank
+    reads 8 batches of its slice and the means are averaged over the
+    ranks, so that every replica starts from the same bias."""
     from vae_mdl_tpu_torch.train.state import init_output_bias
 
     if trainer.state.step != 0:
         return
     batches = [next(trainer.train_iter) for _ in range(8)]
-    mean_img = np.concatenate(batches).astype(np.float32).mean(0) / 255.0
-    init_output_bias(trainer.state, torch.as_tensor(mean_img))
-    print("[train] decoder output bias initialised to train-mean logits")
+    mean_img = torch.as_tensor(np.concatenate(batches).astype(np.float32).mean(0) / 255.0)
+    if trainer.mesh is not None:
+        from vae_mdl_tpu_torch.parallel.mesh import mean_over_replicas
+
+        mean_img = mean_over_replicas(mean_img, trainer.mesh)
+    init_output_bias(trainer.state, mean_img)
+    if _is_rank0():
+        print("[train] decoder output bias initialised to train-mean logits")
 
 
 def _print_khat(metrics, n_samples: int, n_images: int) -> None:
@@ -266,7 +344,9 @@ def _evaluate(trainer, cfg, n_samples: int, khat: bool = False, k_curve: bool = 
     test = trainer.test_set[0]
     mean_llh, _, metrics = evaluate_llh(trainer.model, cfg, test, n_samples=n_samples,
                                         params=eval_params(cfg.train, trainer.state),
-                                        khat=khat, k_curve=k_curve)
+                                        khat=khat, k_curve=k_curve, mesh=trainer.mesh)
+    if not _is_rank0():
+        return mean_llh, metrics
     print(f"[eval] {n_samples}-IS test LLH: {mean_llh:.2f} nats, bpd: {metrics['bpd']:.4f} "
           f"(llh {mean_llh!r})")
     if khat:
@@ -280,8 +360,10 @@ def _dump_assets(trainer, cfg, out_dir: str = "./assets") -> None:
     """The three PNG grids of ``Trainer.report`` on the eval weights."""
     from vae_mdl_tpu_torch.utils.images import fill_canvas, save_png
 
+    grids = trainer.report(trainer.state.step)  # every rank: a layer may be sharded
+    if not _is_rank0():
+        return
     os.makedirs(out_dir, exist_ok=True)
-    grids = trainer.report(trainer.state.step)
     name = cfg.model.name
     for tag, images in zip(("inputs", "recon", "samples"), grids):
         save_png(fill_canvas(images.float().cpu().numpy()), f"{out_dir}/{name}_{tag}.png")
@@ -290,7 +372,7 @@ def _dump_assets(trainer, cfg, out_dir: str = "./assets") -> None:
 
 def cmd_eval(args) -> None:
     cfg = _no_resume(_apply_overrides(_base_config(args), args))
-    trainer = _trainer(args, cfg)
+    trainer = _trainer(args, cfg, distributed=True)
     _restore_weights(trainer, cfg, args, "eval")
     _evaluate(trainer, cfg, args.n_samples or cfg.train.n_eval_samples, args.khat,
               args.k_curve)
@@ -303,7 +385,9 @@ def cmd_eval(args) -> None:
                           batch_size=min(500, len(test)))
         layers = ", ".join(f"z{i + 1}: {a}/{d}"
                            for i, (a, d) in enumerate(zip(au["au"], au["n_dims"])))
-        print(f"[eval] active units (Cov_x(E_q[z|x]) > 0.01, Burda et al. 2016): {layers}")
+        if _is_rank0():  # every rank computes: a layer may be sharded over model
+            print(f"[eval] active units (Cov_x(E_q[z|x]) > 0.01, Burda et al. 2016): "
+                  f"{layers}")
 
 
 def _restore_weights(trainer, cfg, args, what: str) -> None:
@@ -350,6 +434,8 @@ def cmd_export(args) -> None:
     from vae_mdl_tpu_torch.models import export as mexport
     from vae_mdl_tpu_torch.train.state import eval_params
 
+    if args.mesh not in (None, "none"):
+        raise SystemExit(f"--mesh {args.mesh!r}: {mexport.MESH_REFUSAL}")
     cfg = _no_resume(_apply_overrides(_base_config(args), args))
     trainer = _trainer(args, cfg)
     _restore_weights(trainer, cfg, args, "export")
@@ -436,7 +522,7 @@ def cmd_parity(args) -> None:
                              "(docs/parity.md lists every dataset's files)")
 
     target = _PARITY_TARGETS.get(name)
-    trainer = _trainer(args, cfg)
+    trainer = _trainer(args, cfg, distributed=True)
     if not args.eval_only:
         if name == "model01":
             _maybe_bias_init(trainer)
@@ -487,6 +573,8 @@ def cmd_parity(args) -> None:
                    f"{report['status']}")
     if report["synthetic_rehearsal"]:
         verdict += "  [SYNTHETIC REHEARSAL — not a parity claim]"
+    if not _is_rank0():
+        return
 
     path = args.report or os.path.join(cfg.train.checkpoint_dir, name, "parity.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -520,7 +608,6 @@ def cmd_describe(args) -> None:
     from vae_mdl_tpu_torch.nn.decoders import head_channels
     from vae_mdl_tpu_torch.utils.flops import device_peaks, forward_flops, train_step_flops
 
-    _check_mesh(args.mesh)
     cfg = _base_config(args)
     m = cfg.model
     if args.batch_size is not None:
@@ -552,6 +639,21 @@ def cmd_describe(args) -> None:
 
     latent = m.latents() if hasattr(m, "latents") else f"spatial {m.top_latent_shape()}"
     lk_head = head_channels(m.likelihood, m.image_shape[-1], m.n_mix)
+    mesh_plan = None
+    if args.mesh and args.mesh != "none":
+        d, s, mm = _parse_mesh_spec(args.mesh)
+        ks = cfg.train.n_eval_samples
+        mesh_plan = {
+            "data": d, "sample": s, "model": mm, "n_ranks": d * s * mm,
+            # the data-parallel and ZeRO-1 steps shard the batch over data x
+            # sample; the model ranks share rows (parallel/spmd.py)
+            "batch_per_rank": batch // (d * s),
+            "batch_divides": batch % (d * s) == 0,
+            "eval_samples_per_sample_rank": ks // s,
+            "eval_samples_divide": ks % s == 0,
+            # several hosts: make_mesh lays them out as major blocks on data
+            "host_axis": "data",
+        }
     if cfg.train.lr_staircase:
         sched = (f"staircase(base {cfg.train.lr_staircase_base}, "
                  f"{cfg.train.lr_staircase_levels} levels)")
@@ -584,6 +686,7 @@ def cmd_describe(args) -> None:
             "peak_dtype": m.compute_dtype,
             "ceiling_imgs_per_sec": ceiling,
             "config": config_to_dict(cfg),
+            **({"mesh_plan": mesh_plan} if mesh_plan is not None else {}),
         }))
         return
 
@@ -610,6 +713,27 @@ def cmd_describe(args) -> None:
           f"batch {batch}")
     print(f"  ceiling          {ceiling:,.0f} imgs/s at 100% of {part}'s {m.compute_dtype} peak "
           f"({peak / 1e12:g} TFLOP/s, NVIDIA's published dense figure)")
+    if mesh_plan is not None:
+        d, s, mm = mesh_plan["data"], mesh_plan["sample"], mesh_plan["model"]
+        print()
+        print(f"  mesh plan        (data={d}, sample={s}, model={mm}) = "
+              f"{mesh_plan['n_ranks']} ranks (one process and one card each)")
+        div = "" if mesh_plan["batch_divides"] else "  [! does not divide]"
+        print(f"    train batch    {batch} -> {mesh_plan['batch_per_rank']} per rank "
+              f"(data x sample){div}")
+        kdiv = "" if mesh_plan["eval_samples_divide"] else "  [! does not divide]"
+        print(f"    eval IS axis   {cfg.train.n_eval_samples} importance samples -> "
+              f"{mesh_plan['eval_samples_per_sample_rank']} per sample rank{kdiv}")
+        if mm > 1:
+            print(f"    tensor par.    wide conv/dense layers channel-sharded over model={mm} "
+                  "(parallel/tensor.py)")
+        if mm == 1:
+            print(f"    optimizer      ZeRO-1 available: moments reduce-scattered over all "
+                  f"{d * s} ranks (parallel/spmd.py)")
+        print("    several hosts  'data' is the host-major axis; sample/model collectives "
+              "stay inside a host (parallel/mesh.py)")
+        print(f"    start          torchrun --nproc-per-node {d * s * mm} -m vae_mdl_tpu_torch "
+              f"train {m.name} --mesh {args.mesh}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -638,8 +762,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--n-samples", type=int, default=None,
                         help="importance samples for the final eval "
                              "(default: cfg.train.n_eval_samples = 5000)")
-        sp.add_argument("--mesh", help="only 'none': the port runs on one device (its mesh "
-                                       "paths are to come)")
+        sp.add_argument("--mesh", help="DxS or DxSxM rank mesh (data x sample x model); "
+                                       "'none' for one device (train, eval, parity)")
         sp.add_argument("--bf16", action="store_true", help="bfloat16 conv/matmul body")
         sp.add_argument("--likelihood-io-dtype", choices=["bfloat16", "float32"], default=None,
                         help="quantize the decoder-head -> likelihood boundary tensor (mdl); "
@@ -761,7 +885,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="describe a config JSON (e.g. a run's recorded config.json)")
     sp.add_argument("--batch-size", type=int)
     sp.add_argument("--bf16", action="store_true")
-    sp.add_argument("--mesh", help="only 'none' (the port's mesh paths are to come)")
+    sp.add_argument("--mesh", help="DxS or DxSxM plan to preview")
     sp.add_argument("--json", action="store_true",
                     help="emit the card as one JSON object (with the full config)")
     sp.set_defaults(fn=cmd_describe)
@@ -769,8 +893,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    joined = dist.is_initialized()
+    try:
+        args.fn(args)
+    finally:
+        if dist.is_initialized() and not joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

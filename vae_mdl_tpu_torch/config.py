@@ -8,7 +8,8 @@ One field reads differently here: ``ModelConfig.use_pallas`` selects the
 hand-written CUDA kernels instead of the Pallas ones. ``None`` = auto (the
 kernel for CUDA tensors, the plain PyTorch version for CPU tensors),
 ``True`` = the kernel (CPU tensors raise), ``False`` = the plain version.
-The mesh config is not mirrored: the port has no parallel path yet.
+``MeshConfig`` counts ranks (one process per device) where the JAX one
+counts devices.
 """
 from __future__ import annotations
 
@@ -145,7 +146,20 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The rank mesh (``parallel.mesh.make_mesh``): ``data`` shards the
+    batch, ``sample`` the importance samples of the evaluation, ``model``
+    the wide layers' output channels (tensor parallelism,
+    ``parallel/tensor.py``)."""
+
+    data: int = -1  # -1: every rank not on sample or model
+    sample: int = 1
+    model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = ModelConfig()
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()

@@ -11,11 +11,10 @@ package loads in the other, field for field.
   ``fit()`` and warns with ``diff_configs``' dotted paths when a resumed
   run's live config differs from the recorded one.
 
-The port has no mesh config yet (its parallel paths are to come): it writes
-the JAX package's default section ``"mesh": {"data": -1, "sample": 1,
-"model": 1}``, reads that section back, and refuses any other mesh with a
-``ValueError`` that names it. JSON has no tuples, so every list decodes back
-to a tuple; an unknown field fails with its section's name.
+The ``mesh`` section holds ``MeshConfig``'s fields under the JAX package's
+names (``data``, ``sample``, ``model``); a file without one gets the
+default. JSON has no tuples, so every list decodes back to a tuple; an
+unknown field fails with its section's name.
 """
 from __future__ import annotations
 
@@ -23,11 +22,15 @@ import dataclasses
 import json
 from typing import Any, Dict, List
 
-from vae_mdl_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig, TrainConfig
+from vae_mdl_tpu_torch.config import (
+    DataConfig,
+    ExperimentConfig,
+    MeshConfig,
+    ModelConfig,
+    TrainConfig,
+)
 
 FORMAT = "vae-mdl-tpu/config/v1"
-# the JAX package's MeshConfig() defaults, the only mesh the port runs
-DEFAULT_MESH = {"data": -1, "sample": 1, "model": 1}
 
 
 def _model_classes() -> Dict[str, type]:
@@ -54,7 +57,7 @@ def config_to_dict(cfg: ExperimentConfig) -> Dict[str, Any]:
         "model": dataclasses.asdict(cfg.model),
         "data": dataclasses.asdict(cfg.data),
         "train": dataclasses.asdict(cfg.train),
-        "mesh": dict(DEFAULT_MESH),
+        "mesh": dataclasses.asdict(cfg.mesh),
     }
 
 
@@ -83,20 +86,6 @@ def _build(cls: type, d: Dict[str, Any], section: str):
     return cls(**kwargs)
 
 
-def _check_mesh(mesh: Dict[str, Any]) -> None:
-    unknown = set(mesh) - set(DEFAULT_MESH)
-    if unknown:
-        raise ValueError(
-            f"config section 'mesh': unknown field(s) {sorted(unknown)} for "
-            f"MeshConfig (known: {sorted(DEFAULT_MESH)})")
-    wanted = {**DEFAULT_MESH, **mesh}
-    if wanted != DEFAULT_MESH:
-        raise ValueError(
-            f"config section 'mesh': {wanted} is not the single-device default "
-            f"{DEFAULT_MESH}; the PyTorch port has no mesh (data, sample or model "
-            "parallel) path yet")
-
-
 def config_from_dict(d: Dict[str, Any]) -> ExperimentConfig:
     if not isinstance(d, dict) or "model" not in d:
         raise ValueError("not a vae-mdl-tpu config dict (no 'model' section)")
@@ -109,11 +98,11 @@ def config_from_dict(d: Dict[str, Any]) -> ExperimentConfig:
     if tag not in classes:
         raise ValueError(f"unknown model_class {tag!r} "
                          f"(known: {sorted(classes)})")
-    _check_mesh(d.get("mesh", {}))
     return ExperimentConfig(
         model=_build(classes[tag], d["model"], "model"),
         data=_build(DataConfig, d.get("data", {}), "data"),
         train=_build(TrainConfig, d.get("train", {}), "train"),
+        mesh=_build(MeshConfig, d.get("mesh", {}), "mesh"),
     )
 
 

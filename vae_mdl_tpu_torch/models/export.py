@@ -23,8 +23,9 @@ exported on the card runs on the card; ``load_exported(path, "cpu")`` moves
 it to the CPU with ``torch.export.passes.move_to_device_pass``, which takes
 the place of the JAX export's ``platforms``. The sampling, reconstruction and
 encoding paths evaluate no log-likelihood, so no custom kernel is in a
-program: its graph holds ``aten`` operations only. Sharded serving layouts
-(``mesh=``) wait for the port's parallel paths.
+program: its graph holds ``aten`` operations only. ``mesh=`` raises: a
+program carries no sharding, and a data-parallel server loads one
+single-device program on each rank.
 """
 from __future__ import annotations
 
@@ -53,11 +54,16 @@ class _Program(torch.nn.Module):
         return self.fn(self.weights, list(inputs[:self.n_noise]), list(inputs[self.n_noise:]))
 
 
+MESH_REFUSAL = (
+    "export(mesh=...): a torch.export program carries no sharding; a data-parallel "
+    "server runs one single-device program on each rank (export for one device and "
+    "load it on every card), and the JAX package's sharded GSPMD serving layout has "
+    "no counterpart in the port yet (ROADMAP.md)")
+
+
 def _check_single_device(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError(
-            "export(mesh=...): sharded serving layouts need the port's parallel paths "
-            "(parallel/), which are to come; export for one device")
+        raise NotImplementedError(MESH_REFUSAL)
 
 
 def export_callable(fn: Callable, example_args: Sequence[torch.Tensor],

@@ -18,6 +18,15 @@ on the card restores on the CPU and the other way round.
 
 Restores write into the target state in place: its parameters are the
 model's own, so the model holds the restored weights afterwards.
+
+Under a process group (``parallel/``) a checkpoint is one whole state, as
+the JAX package's are global arrays: a ZeRO-1 state's flat moments are
+gathered at their padded length and a tensor-parallel state's channel
+slices whole, by every rank; rank 0 writes, and every rank waits for the
+write before going on. A restore takes this rank's part of what was saved.
+``meta.json`` records the shapes of the saved optimizer state
+(``metadata_tree``), so the rank count a ZeRO-1 state was saved under is
+read without a tensor (``parallel.spmd.elastic_restore_zero1``).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from vae_mdl_tpu_torch.train.state import TrainState
 
@@ -47,6 +57,73 @@ def _device(state: TrainState) -> torch.device:
     return next(iter(state.params.values())).device
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    """Every rank waits here for every other (over the host, whatever the
+    device's backend)."""
+    if dist.is_initialized():
+        dist.all_reduce(torch.zeros(1))
+
+
+def _shapes(tree):
+    """``meta.json``'s record of a state tree: tensors as their shapes."""
+    if isinstance(tree, dict):
+        return {key: _shapes(value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(value) for value in tree]
+    if isinstance(tree, torch.Tensor):
+        return {"shape": list(tree.shape)}
+    return None
+
+
+def _sizes(record):
+    """The inverse of ``_shapes``: shapes as ``torch.Size`` leaves."""
+    if isinstance(record, dict) and set(record) == {"shape"}:
+        return torch.Size(record["shape"])
+    if isinstance(record, dict):
+        return {key: _sizes(value) for key, value in record.items()}
+    if isinstance(record, list):
+        return [_sizes(value) for value in record]
+    return record
+
+
+def whole_state_dict(state: TrainState) -> dict:
+    """``state.state_dict()`` with every sharded tensor whole: a
+    tensor-parallel state's channel slices and a ZeRO-1 state's flat
+    slices gathered (collectives: every rank of the group calls this)."""
+    sd = state.state_dict()
+    layout = state.tp_layout
+    if layout is not None:
+        names = list(state.params)
+        sd["params"] = {name: layout.whole(name, p) for name, p in sd["params"].items()}
+        sd["opt_state"] = layout.map_params(layout.whole, sd["opt_state"], names)
+        if sd["ema_params"] is not None:
+            sd["ema_params"] = layout.map_params(layout.whole, sd["ema_params"], names)
+    if dist.is_initialized():
+        from vae_mdl_tpu_torch.parallel.spmd import gather_zero1_opt_state
+
+        sd["opt_state"] = gather_zero1_opt_state(sd["opt_state"])
+    return sd
+
+
+def local_state_dict(saved: dict, target: TrainState) -> dict:
+    """This rank's part of a whole saved state, laid out as ``target``."""
+    from vae_mdl_tpu_torch.parallel.spmd import local_zero1_opt_state
+
+    saved = dict(saved, opt_state=local_zero1_opt_state(saved["opt_state"], target.opt_state))
+    layout = target.tp_layout
+    if layout is not None:
+        names = list(target.params)
+        saved["params"] = {name: layout.local(name, p) for name, p in saved["params"].items()}
+        saved["opt_state"] = layout.map_params(layout.local, saved["opt_state"], names)
+        if saved["ema_params"] is not None:
+            saved["ema_params"] = layout.map_params(layout.local, saved["ema_params"], names)
+    return saved
+
+
 class Checkpointer:
     def __init__(self, directory: str, name: str):
         self.base = os.path.abspath(os.path.join(directory, name))
@@ -60,18 +137,22 @@ class Checkpointer:
         ``<tag>.tmp``, then moved into place (the previous ``<tag>`` goes to
         ``<tag>.old`` for the moment between the two renames, and ``has``
         and the loaders put it back should a crash fall there)."""
-        path = self._path(tag)
-        tmp, old = path + ".tmp", path + ".old"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, "state.pt"))
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": int(state.step), "has_ema": state.ema_params is not None}, f)
-        shutil.rmtree(old, ignore_errors=True)
-        if os.path.isdir(path):
-            os.replace(path, old)
-        os.replace(tmp, path)
-        shutil.rmtree(old, ignore_errors=True)
+        sd = whole_state_dict(state)
+        if _rank() == 0:
+            path = self._path(tag)
+            tmp, old = path + ".tmp", path + ".old"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(sd, os.path.join(tmp, "state.pt"))
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"step": int(state.step), "has_ema": state.ema_params is not None,
+                           "shapes": {"opt_state": _shapes(sd["opt_state"])}}, f)
+            shutil.rmtree(old, ignore_errors=True)
+            if os.path.isdir(path):
+                os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        _barrier()
 
     def wait(self) -> None:
         """A no-op: saves are synchronous, so nothing is ever in flight. Kept
@@ -83,7 +164,10 @@ class Checkpointer:
         a crash between ``save``'s two renames left at ``<tag>.old``."""
         path = self._path(tag)
         if not os.path.isdir(path) and os.path.isdir(path + ".old"):
-            os.replace(path + ".old", path)
+            try:
+                os.replace(path + ".old", path)
+            except FileNotFoundError:  # another rank put it back first
+                pass
         return path
 
     def snapshots(self) -> list:
@@ -97,8 +181,8 @@ class Checkpointer:
 
     def prune_snapshots(self, keep: int) -> None:
         """Delete the oldest snapshots beyond ``keep`` (never ``latest`` or
-        ``best``); ``keep <= 0`` keeps everything."""
-        if keep <= 0:
+        ``best``); ``keep <= 0`` keeps everything. Rank 0 deletes."""
+        if keep <= 0 or _rank() != 0:
             return
         for tag in self.snapshots()[:-keep]:
             shutil.rmtree(self._path(tag), ignore_errors=True)
@@ -120,7 +204,13 @@ class Checkpointer:
         restored into a target with one seeds the EMA from the restored
         params.
         """
-        saved = self.load(tag, _device(target))
+        return self.restore_state_dict(target, self.load(tag, _device(target)), tag)
+
+    def restore_state_dict(self, target: TrainState, saved: dict,
+                           tag: str = "latest") -> TrainState:
+        """``restore`` from a saved state already loaded (``load``), e.g.
+        one whose optimizer state was laid out for another rank count."""
+        saved = local_state_dict(saved, target)
         if _structure(saved["opt_state"]) != _structure(target.opt_state):
             raise ValueError(
                 f"checkpoint {self._path(tag)!r}: its optimizer state has another "
@@ -139,7 +229,7 @@ class Checkpointer:
         state as it is, so a checkpoint trained under other optimizer flags
         restores for evaluation. A target with EMA and a checkpoint without
         seeds the EMA from the restored params."""
-        saved = self.load(tag, _device(target))
+        saved = local_state_dict(self.load(tag, _device(target)), target)
         with torch.no_grad():
             for name, p in target.params.items():
                 p.copy_(saved["params"][name])
@@ -154,6 +244,16 @@ class Checkpointer:
         its ``meta.json``; no tensor is loaded)."""
         with open(os.path.join(self._settled(tag), "meta.json")) as f:
             return bool(json.load(f)["has_ema"])
+
+    def metadata_tree(self, tag: str = "latest") -> Optional[dict]:
+        """``{"opt_state": tree}`` of the saved optimizer state's shapes
+        (``torch.Size`` leaves), read from ``meta.json`` without loading a
+        tensor; None where the record is missing or unreadable."""
+        try:
+            with open(os.path.join(self._settled(tag), "meta.json")) as f:
+                return _sizes(json.load(f)["shapes"])
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
 
     def has(self, tag: str) -> bool:
         return os.path.isdir(self._settled(tag))

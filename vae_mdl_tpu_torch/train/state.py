@@ -46,9 +46,11 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def _stream_seed(seed: int, step: int, name: str) -> int:
-    return int(np.random.SeedSequence(
-        [seed, step, zlib.crc32(name.encode()) & 0x7FFFFFFF]).generate_state(1, np.uint64)[0] >> 1)
+def _stream_seed(seed: int, step: int, name: str, fold: Optional[int] = None) -> int:
+    entropy = [seed, step, zlib.crc32(name.encode()) & 0x7FFFFFFF]
+    if fold is not None:
+        entropy.append(fold)
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 @dataclasses.dataclass
@@ -63,14 +65,19 @@ class TrainState:
     best_val_loss: float = math.inf
     # exponential moving average of the params (TrainConfig.ema_decay > 0)
     ema_params: Optional[Params] = None
+    # the tensor-parallel layout (parallel.tensor.TPLayout) of a state whose
+    # wide layers hold one rank's output channels; None: every tensor whole
+    tp_layout: Optional[Any] = dataclasses.field(default=None, repr=False)
 
-    def next_rngs(self, *streams: str, device=None) -> Dict[str, torch.Generator]:
+    def next_rngs(self, *streams: str, device=None,
+                  fold: Optional[int] = None) -> Dict[str, torch.Generator]:
         """One generator per stream for this step, seeded from (seed, step,
-        crc32 of the stream's name)."""
+        crc32 of the stream's name[, fold]); the parallel steps fold in the
+        rank's batch shard, as the JAX package folds in the device index."""
         out = {}
         for name in streams:
             gen = torch.Generator(device=device)
-            gen.manual_seed(_stream_seed(self.seed, self.step, name))
+            gen.manual_seed(_stream_seed(self.seed, self.step, name, fold))
             out[name] = gen
         return out
 

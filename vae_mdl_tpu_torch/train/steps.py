@@ -1,7 +1,7 @@
 """Train and eval steps.
 
-Port of ``vae_mdl_tpu/train/steps.py`` for one process on one device. A
-step takes a uint8 batch on the model's device, preprocesses it there, runs
+Port of ``vae_mdl_tpu/train/steps.py``. A step takes a uint8 batch on the
+model's device, preprocesses it there, runs
 the k-sample forward pass and the bound, differentiates it with autograd
 (through the MoDL kernels on a card) and applies the optimizer's update to
 the parameters in place. Nothing in a step waits for the device: the
@@ -14,7 +14,10 @@ The factories mirror the JAX ones: ``make_train_step`` (one step),
 single steps, since each step's generators derive from the state's seed and
 step), ``make_device_data_train_step`` (a dataset on the device, batches
 gathered by indices drawn there) and ``make_eval_step``. A step updates the
-state in place and returns it.
+state in place and returns it. Over several ranks ``mesh=`` takes the
+data-parallel step of ``parallel/spmd.py`` in its place; a state in the
+tensor-parallel layout (``parallel/tensor.py``) trains through the plain
+step too, its gradient norm summed over the ``model`` group.
 """
 from __future__ import annotations
 
@@ -59,14 +62,23 @@ def update_ok(loss: torch.Tensor, gnorm: torch.Tensor, threshold: float) -> torc
 
 
 def apply_update(cfg: ExperimentConfig, tx: GradientTransformation, params: Params,
-                 opt_state, grads: Params, loss: torch.Tensor):
+                 opt_state, grads: Params, loss: torch.Tensor, *,
+                 grad_norm: Optional[torch.Tensor] = None):
     """The update policy of every train step: grad norm -> ``tx.update`` ->
     add the updates to ``params`` in place -> skip-select. Returns
     ``(new_opt_state, ok, stats)``; ``ok`` is None when the skip rule is
-    off, else the device boolean the EMA must also gate on."""
+    off, else the device boolean the EMA must also gate on.
+
+    ``grad_norm`` is the norm the skip rule and the ``grad_norm`` metric
+    read, where the caller has it: the ZeRO-1 step passes the norm of the
+    whole mean gradient, summed over the ranks' slices, since ``grads`` is
+    its slice alone (and it applies the clip itself with that norm, which
+    leaves the clip inside ``tx`` nothing to do). None: the norm of
+    ``grads``."""
     want_gnorm = cfg.train.grad_skip_threshold > 0 or cfg.train.grad_clip_norm > 0
     stats = {}
-    grad_norm = global_norm(grads) if want_gnorm else None  # before the clip
+    if want_gnorm and grad_norm is None:
+        grad_norm = global_norm(grads)  # before the clip
     updates, new_opt = tx.update(grads, opt_state, params)
     ok = None
     with torch.no_grad():
@@ -83,6 +95,28 @@ def apply_update(cfg: ExperimentConfig, tx: GradientTransformation, params: Para
     if want_gnorm:
         stats["grad_norm"] = grad_norm
     return new_opt, ok, stats
+
+
+def tensor_parallel_clip(cfg: ExperimentConfig, state: TrainState, grads: Params):
+    """``(grads, grad_norm)`` for ``apply_update``: on a state in the
+    tensor-parallel layout (``state.tp_layout``), whose sharded gradients
+    are this rank's channel slices, the whole gradient's norm (a collective
+    over the ``model`` group) and the clip applied with it, since ``tx``'s
+    own clip would see the slices alone; else ``(grads, None)``."""
+    want_gnorm = cfg.train.grad_skip_threshold > 0 or cfg.train.grad_clip_norm > 0
+    if not want_gnorm or state.tp_layout is None:
+        return grads, None
+    gnorm = state.tp_layout.global_norm(grads)
+    if cfg.train.grad_clip_norm > 0:
+        scale = clip_scale(cfg.train.grad_clip_norm, gnorm)
+        grads = dict(zip(grads, torch._foreach_mul(list(grads.values()), scale)))
+    return grads, gnorm
+
+
+def clip_scale(max_norm: float, gnorm: torch.Tensor) -> torch.Tensor:
+    """``min(1, max_norm / gnorm)``: the factor that clips a gradient of
+    global norm ``gnorm`` to ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-16), max=1.0)
 
 
 def ema_step(cfg: ExperimentConfig, ema: Optional[Params], params: Params,
@@ -157,8 +191,9 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
                                    rngs["sample"], beta, eps=eps)
         loss, metrics = loss_fn(state.params)
         grads = dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values()))))
+        grads, gnorm = tensor_parallel_clip(cfg, state, grads)
         state.opt_state, ok, stats = apply_update(cfg, tx, state.params, state.opt_state,
-                                                  grads, loss.detach())
+                                                  grads, loss.detach(), grad_norm=gnorm)
         state.ema_params = ema_step(cfg, state.ema_params, state.params, ok)
         state.step += 1
         out = _scalarize(metrics)
@@ -170,10 +205,17 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
 
 
 def make_multi_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
-                          n_steps: int) -> Callable:
+                          n_steps: int, mesh=None) -> Callable:
     """``(state, batches[n, B, ...]) -> (state, metrics of the window)``:
-    ``n_steps`` updates per call, equal to as many single steps."""
-    step = make_train_step(model, cfg, tx)
+    ``n_steps`` updates per call, equal to as many single steps (under a
+    ``mesh``, of ``parallel.spmd.make_shard_map_train_step`` on this rank's
+    rows)."""
+    if mesh is None:
+        step = make_train_step(model, cfg, tx)
+    else:
+        from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
+
+        step = make_shard_map_train_step(model, cfg, tx, mesh)
 
     def multi(state: TrainState, batches: torch.Tensor):
         if batches.shape[0] != n_steps:
@@ -188,34 +230,48 @@ def make_multi_train_step(model, cfg: ExperimentConfig, tx: GradientTransformati
 
 
 def make_device_data_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
-                                n_steps: int, n_data: int) -> Callable:
+                                n_steps: int, n_data: int, mesh=None) -> Callable:
     """``(state, data[N, H, W, C] uint8) -> (state, metrics of the window)``
     for a dataset that lives on the device: each step gathers its batch by
     indices drawn there, i.i.d. with replacement, from the "device_batch"
-    stream. The JAX version's ``mesh`` waits for the parallel paths."""
-    step = make_train_step(model, cfg, tx)
+    stream. Under a ``mesh`` every rank holds the whole dataset, draws the
+    same indices and gathers its rows of them for the data-parallel step
+    (``parallel.spmd.make_shard_map_train_step``)."""
     batch_size = cfg.data.batch_size
+    rows = slice(0, batch_size)
+    if mesh is None:
+        step = make_train_step(model, cfg, tx)
+    else:
+        from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
+        from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
+
+        step = make_shard_map_train_step(model, cfg, tx, mesh)
+        index, count = batch_sharding(mesh)
+        rows = slice(index * batch_size // count, (index + 1) * batch_size // count)
 
     def multi(state: TrainState, data: torch.Tensor):
         window = []
         for _ in range(n_steps):
             gen = state.next_rngs("device_batch", device=data.device)["device_batch"]
             idx = torch.randint(0, n_data, (batch_size,), generator=gen, device=data.device)
-            state, metrics = step(state, data[idx])
+            state, metrics = step(state, data[idx[rows]])
             window.append(metrics)
         return state, reduce_scan_metrics(window)
 
     return multi
 
 
-def make_eval_step(model, cfg: ExperimentConfig, n_samples: Optional[int] = None) -> Callable:
+def make_eval_step(model, cfg: ExperimentConfig, n_samples: Optional[int] = None,
+                   fold: Optional[int] = None) -> Callable:
     """``(state, uint8 batch) -> metrics`` on the eval weights (the EMA copy
-    when enabled) with the true bound: free bits is a training-only floor."""
+    when enabled) with the true bound: free bits is a training-only floor.
+    ``fold`` (a rank's batch shard) is folded into the generators' seeds."""
     k = n_samples or cfg.model.n_samples
 
     def step(state: TrainState, batch: torch.Tensor) -> Metrics:
         with torch.no_grad():
-            rngs = state.next_rngs("eval_sample", "eval_binarize", device=batch.device)
+            rngs = state.next_rngs("eval_sample", "eval_binarize", device=batch.device,
+                                   fold=fold)
             x = preprocess(cfg, batch, rngs["eval_binarize"])
             Qs, Ps, pxz = apply(model, eval_params(cfg.train, state), x, k,
                                 generator=rngs["eval_sample"])

@@ -1,11 +1,10 @@
 """The training loop, its checkpoints and the final test evaluation.
 
-Port of ``vae_mdl_tpu/train/trainer.py`` for one process on one device:
-train one batch an update (or ``steps_per_call`` stacked batches a call);
-every ``eval_interval`` updates validate one batch, log, save ``latest``
-(with the improved best validation loss folded in first), save ``best``
-when the validation loss improved and a ``step_<N>`` snapshot at
-``snapshot_interval``; resume from ``latest`` at start, with the train
+Port of ``vae_mdl_tpu/train/trainer.py``: train one batch an update (or
+``steps_per_call`` stacked batches a call); every ``eval_interval`` updates
+validate one batch, log, save ``latest`` (with the improved best validation
+loss folded in first), save ``best`` when the validation loss improved and a
+``step_<N>`` snapshot at ``snapshot_interval``; resume from ``latest`` at start, with the train
 stream sought to the checkpointed step, so a resumed run takes the batches
 an uninterrupted one takes; SIGTERM finishes the step in flight, saves and
 returns. ``report`` logs three image grids and ``test`` runs the n-sample
@@ -16,9 +15,15 @@ host memory, copied on the producer's own stream. Nothing in the loop waits
 for the device except at eval intervals, where the throughput window is
 timed after ``torch.cuda.synchronize()`` and the metrics are read.
 
-Left out: the mesh and multi-process arguments (the port's parallel paths
-are to come; a mesh raises) and the JAX trainer's retrace guard, which
-counts XLA recompilations: eager PyTorch compiles nothing.
+Under a ``mesh`` (``parallel.mesh.make_mesh``, one rank per process) each
+rank feeds its slice of every global batch through the pipeline's
+``process_index`` / ``process_count``, the replicas start from rank 0's
+state, the step is ``parallel.spmd.make_shard_map_train_step`` (on a state
+in the tensor-parallel layout, ``parallel.tensor.shard_state_tp``, where the
+mesh has ``model > 1``), the validation metrics are averaged over the
+ranks, so every rank keeps the same best validation loss, and only rank 0
+logs and writes ``config.json``. Left out: the JAX trainer's retrace guard,
+which counts XLA recompilations: eager PyTorch compiles nothing.
 """
 from __future__ import annotations
 
@@ -29,13 +34,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from vae_mdl_tpu_torch.config import ExperimentConfig
 from vae_mdl_tpu_torch.data.pipeline import device_prefetch, iterators_from_splits, make_splits
 from vae_mdl_tpu_torch.distributions import MixtureDiscretizedLogistic
 from vae_mdl_tpu_torch.models.objective import apply
 from vae_mdl_tpu_torch.models.vae import build_model
-from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
+from vae_mdl_tpu_torch.parallel.distributed import process_index
+from vae_mdl_tpu_torch.parallel.mesh import batch_sharding, mean_over_replicas, shard_state
+from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step, pack_metrics
+from vae_mdl_tpu_torch.parallel.tensor import shard_state_tp
+from vae_mdl_tpu_torch.train.checkpoint import Checkpointer, local_state_dict
 from vae_mdl_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -62,23 +72,32 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, data=None, logger: Optional[MetricLogger] = None,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise ValueError("Trainer(mesh=...): the PyTorch port trains on one device; "
-                             "its mesh paths are to come")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"Trainer(mesh=...) takes the DeviceMesh of "
+                            f"parallel.mesh.make_mesh; got {type(mesh).__name__}")
         self.cfg = cfg
+        self.mesh = mesh
         # build_model places the model on the card and raises where there is none
         self.model = build_model(cfg.model, torch.Generator().manual_seed(cfg.train.seed),
                                  device=device)
         self.device = next(self.model.parameters()).device
 
+        # the global batch divides over the batch shards; each rank feeds
+        # its slice (data given here is this rank's)
+        self._shard, self._n_shards = batch_sharding(mesh) if mesh is not None else (0, 1)
+        if cfg.data.batch_size % self._n_shards:
+            raise ValueError(f"batch_size {cfg.data.batch_size} not divisible by the mesh's "
+                             f"{self._n_shards} batch shards (data x sample)")
         self._splits = None
         self._iter_kw = None  # set iff the trainer owns its data pipeline
         if data is None:
             self._splits = make_splits(cfg.data.dataset, cfg.data.data_dir,
                                        allow_synthetic_fallback=not cfg.data.strict)
-            self._iter_kw = dict(batch_size=cfg.data.batch_size,
-                                 val_batch_size=max(1, cfg.data.val_batch_size),
-                                 seed=cfg.data.seed)
+            self._iter_kw = dict(batch_size=cfg.data.batch_size // self._n_shards,
+                                 val_batch_size=max(1, cfg.data.val_batch_size
+                                                    // self._n_shards),
+                                 seed=cfg.data.seed, process_index=self._shard,
+                                 process_count=self._n_shards)
             data = iterators_from_splits(self._splits, **self._iter_kw)
         self.train_iter, self.val_iter, self.test_set = data
         # the JAX trainer initialises from one validation batch; taking it
@@ -90,6 +109,12 @@ class Trainer:
         self.ckpt = Checkpointer(cfg.train.checkpoint_dir, cfg.model.name)
         if cfg.train.resume and self.ckpt.restore_latest(self.state) is not None:
             print(f"[trainer] resumed from step {self.state.step}")
+        if mesh is not None:
+            shard_state(mesh, self.state)  # the replicas start from rank 0's state
+            if "model" in mesh.mesh_dim_names and mesh.size(
+                    mesh.mesh_dim_names.index("model")) > 1:
+                # the wide layers' channels (and their moments) over "model"
+                shard_state_tp(self.state, mesh, model=self.model)
 
         spc = cfg.train.steps_per_call
         if spc > 1 and (cfg.train.eval_interval % spc or cfg.train.n_updates % spc):
@@ -108,14 +133,19 @@ class Trainer:
             train_x = self._splits.train[0]
             self._device_data = torch.as_tensor(train_x, device=self.device)
             self.train_step = make_device_data_train_step(self.model, cfg, self.tx, n_steps=spc,
-                                                          n_data=len(train_x))
+                                                          n_data=len(train_x), mesh=mesh)
         elif spc > 1:
-            self.train_step = make_multi_train_step(self.model, cfg, self.tx, n_steps=spc)
+            self.train_step = make_multi_train_step(self.model, cfg, self.tx, n_steps=spc,
+                                                    mesh=mesh)
+        elif mesh is not None:
+            self.train_step = make_shard_map_train_step(self.model, cfg, self.tx, mesh)
         else:
             self.train_step = make_train_step(self.model, cfg, self.tx)
         self.steps_per_call = spc
-        self.eval_step = make_eval_step(self.model, cfg)
-        self.logger = logger or MetricLogger(cfg.train.log_dir, cfg.model.name)
+        self.eval_step = make_eval_step(self.model, cfg,
+                                        fold=self._shard if mesh is not None else None)
+        self.logger = logger or (MetricLogger(cfg.train.log_dir, cfg.model.name)
+                                 if process_index() == 0 else _NullLogger())
         self._stream = None  # the device-prefetch stream of one fit
 
     # ------------------------------------------------------------------ utils
@@ -133,6 +163,8 @@ class Trainer:
         fields that changed first."""
         from vae_mdl_tpu_torch.config_io import diff_configs, load_config, save_config
 
+        if process_index() != 0:
+            return
         path = os.path.join(self.ckpt.base, "config.json")
         if os.path.exists(path):
             try:
@@ -168,7 +200,7 @@ class Trainer:
         profile_at = start_step + spc if profile_dir else -1
         steps = range(start_step, n_updates, spc)
         pbar = None
-        if progress:
+        if progress and process_index() == 0:
             try:
                 from tqdm import tqdm
 
@@ -240,7 +272,8 @@ class Trainer:
             else:
                 batch = next(self._stream)
                 self.state, metrics = self.train_step(self.state, batch)
-                window_imgs += batch.shape[0] * (batch.shape[1] if spc > 1 else 1)
+                window_imgs += (batch.shape[0] * (batch.shape[1] if spc > 1 else 1)
+                                * self._n_shards)
             window_steps += spc
             if pbar is not None:
                 pbar.update(spc)
@@ -255,6 +288,8 @@ class Trainer:
                 imgs_per_sec = window_imgs / dt if dt > 0 else 0.0
 
                 val_metrics = self.eval_step(self.state, self._put(next(self.val_iter)))
+                if self.mesh is not None:  # the same mean on every rank
+                    val_metrics = _mean_metrics(val_metrics, self.mesh)
                 val_loss = float(val_metrics["loss"])
                 self.logger.scalars(i, metrics, prefix="Train")
                 self.logger.scalars(i, val_metrics, prefix="Evaluation")
@@ -337,11 +372,31 @@ class Trainer:
         n_samples = n_samples or self.cfg.train.n_eval_samples
         params = eval_params(self.cfg.train, self.state)
         if ckpt and self.ckpt.has(ckpt):
-            saved = self.ckpt.load(ckpt, self.device)
+            saved = local_state_dict(self.ckpt.load(ckpt, self.device), self.state)
             use_ema = self.cfg.train.ema_decay > 0 and saved["ema_params"] is not None
             params = saved["ema_params"] if use_ema else saved["params"]
         return evaluate_llh(self.model, self.cfg, self.test_set[0], n_samples=n_samples,
-                            params=params, **kwargs)
+                            params=params, mesh=self.mesh, **kwargs)
+
+
+class _NullLogger:
+    """The metric sink of a rank other than 0: only rank 0 logs."""
+
+    def scalars(self, *args, **kwargs):
+        pass
+
+    def image(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _mean_metrics(metrics, mesh):
+    """Scalar metrics averaged over the mesh's batch shards, in one
+    all-reduce."""
+    packed, unpack = pack_metrics(metrics)
+    return unpack(mean_over_replicas(packed, mesh))
 
 
 def _start_profiler(device: torch.device):

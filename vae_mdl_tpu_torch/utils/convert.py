@@ -38,7 +38,14 @@ structure deciding what each JAX node is:
 - the ``optax.chain`` of ``clip_by_global_norm`` (an empty state) and the
   optimizer (the port's ``[{}, inner]``).
 
-Leaves shaped as the params convert as the params do. The JAX state is read
+Leaves shaped as the params convert as the params do. A ZeRO-1 optimizer
+state (``parallel/spmd.py`` in either package: moments over the flattened
+parameters) converts with ``zero1_opt_state_from_flax`` and
+``zero1_opt_state_to_flax``: the JAX flat vector is ``ravel_pytree``'s,
+the Flax leaves in sorted-key order, each raveled in its Flax layout
+(HWIO, ``[in, out]``); the port's is ``state.params``' order in the port's
+layouts. The lengths agree and the pad (zero) is carried over; the element
+order is mapped leaf by leaf. The JAX state is read
 and written through its attributes only (``params``, ``opt_state``,
 ``step``, ``best_val_loss``, ``ema_params``, optax's namedtuples and the
 Keras state's fields), so this module needs neither jax nor optax. The port's
@@ -171,27 +178,29 @@ def _opt_from_flax(node, port, placed, device):
     return {"count": _count(adam.count, device), "mu": placed(adam.mu), "nu": placed(adam.nu)}
 
 
-def _opt_to_flax(port, like, cfg):
-    """The JAX optimizer state shaped as ``like`` holding the port's ``port``."""
+def _opt_to_flax(port, like, cfg, to_flax=None):
+    """The JAX optimizer state shaped as ``like`` holding the port's
+    ``port``; ``to_flax`` converts a parameter-shaped dict (by default
+    ``params_to_flax``)."""
+    to_flax = to_flax or (lambda tree: params_to_flax(tree, cfg.model))
     if isinstance(port, list):
-        return type(like)(_opt_to_flax(p, n, cfg) for p, n in zip(port, like))
+        return type(like)(_opt_to_flax(p, n, cfg, to_flax) for p, n in zip(port, like))
     if not port:
         return like
     if "mini_step" in port:
         return like._replace(
             mini_step=np.asarray(int(port["mini_step"]), np.int32),
             gradient_step=np.asarray(int(port["gradient_step"]), np.int32),
-            inner_opt_state=_opt_to_flax(port["inner_opt_state"], like.inner_opt_state, cfg),
-            acc_grads=params_to_flax(port["acc_grads"], cfg.model))
+            inner_opt_state=_opt_to_flax(port["inner_opt_state"], like.inner_opt_state, cfg,
+                                         to_flax),
+            acc_grads=to_flax(port["acc_grads"]))
     count = np.asarray(int(port["count"]), np.int32)
     if "m" in port:  # Keras Adam: a flax struct, not a namedtuple
-        return like.replace(count=count, m=params_to_flax(port["m"], cfg.model),
-                            v=params_to_flax(port["v"], cfg.model))
+        return like.replace(count=count, m=to_flax(port["m"]), v=to_flax(port["v"]))
 
     def fill(node):
         if _is_adam(node):
-            return node._replace(count=count, mu=params_to_flax(port["mu"], cfg.model),
-                                 nu=params_to_flax(port["nu"], cfg.model))
+            return node._replace(count=count, mu=to_flax(port["mu"]), nu=to_flax(port["nu"]))
         if "count" in _fields(node):  # the schedule's count
             return node._replace(count=count)
         if isinstance(node, tuple) and not hasattr(node, "_fields"):  # a chain
@@ -199,6 +208,98 @@ def _opt_to_flax(port, like, cfg):
         return node
 
     return fill(like)
+
+
+def _flax_leaves(params: Dict[str, torch.Tensor], cfg) -> list:
+    """``(path, Flax shape)`` of every parameter in ``ravel_pytree``'s order
+    (the Flax tree's keys sorted at every level)."""
+    tree = params_to_flax({name: p.detach().cpu() for name, p in params.items()}, cfg)
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return [leaf for key in sorted(node) for leaf in walk(node[key], path + (key,))]
+        return [(path, np.shape(node))]
+
+    return walk(tree, ())
+
+
+def flat_from_flax(vector, params: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    """A JAX ``ravel_pytree`` vector over the params (padded or not) -> the
+    port's flat order and layouts, at the same length (the pad kept)."""
+    vector = np.asarray(vector)
+    tree, offset = {}, 0
+    for path, shape in _flax_leaves(params, cfg):
+        size = int(np.prod(shape, dtype=np.int64))
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = vector[offset:offset + size].reshape(shape)
+        offset += size
+    leaves = params_from_flax(tree, cfg)
+    flat = np.concatenate([leaves[name].numpy().reshape(-1) for name in params]
+                          + [vector[offset:]])
+    return torch.from_numpy(np.ascontiguousarray(flat))
+
+
+def flat_to_flax(flat: torch.Tensor, params: Dict[str, torch.Tensor], cfg) -> np.ndarray:
+    """The inverse of :func:`flat_from_flax`."""
+    flat = flat.detach().cpu()
+    sizes = [p.numel() for p in params.values()]
+    n = sum(sizes)
+    parts = {name: chunk.reshape(p.shape) for (name, p), chunk in zip(
+        params.items(), flat[:n].split(sizes))}
+    tree = params_to_flax(parts, cfg)
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                walk(node[key])
+        else:
+            leaves.append(np.asarray(node).reshape(-1))
+
+    walk(tree)
+    return np.concatenate(leaves + [flat[n:].numpy()])
+
+
+def zero1_opt_state_from_flax(opt_state, like, params: Dict[str, torch.Tensor],
+                              cfg: ExperimentConfig):
+    """A JAX ZeRO-1 optimizer state (``zero1_opt_state``'s, whole) -> the
+    port's whole flat state shaped as ``like`` (a port ZeRO-1 state of the
+    same optimizer): each flat vector in the port's order at the JAX
+    padded length. ``parallel.spmd.reshard_zero1_opt_state`` lays it out
+    for the port's ranks."""
+    device = next(iter(params.values())).device
+
+    def placed(vector):
+        return {"flat": flat_from_flax(vector, params, cfg.model).to(device)}
+
+    return _opt_from_flax(opt_state, like, placed, device)
+
+
+def zero1_opt_state_to_flax(opt_state, like, params: Dict[str, torch.Tensor],
+                            cfg: ExperimentConfig):
+    """The port's whole ZeRO-1 state (``parallel.spmd.gather_zero1_opt_state``'s)
+    -> a JAX one shaped as ``like``, each flat vector in ``ravel_pytree``'s
+    order, padded to ``like``'s length."""
+    lengths = [np.shape(leaf)[0] for leaf in _array_leaves(like) if np.ndim(leaf) == 1]
+
+    def to_flax(flat):
+        vector = flat_to_flax(flat["flat"], params, cfg.model)
+        n_pad = lengths[0] if lengths else len(vector)
+        n = sum(p.numel() for p in params.values())
+        return np.concatenate([vector[:n], np.zeros(n_pad - n, vector.dtype)])
+
+    return _opt_to_flax(opt_state, like, cfg, to_flax)
+
+
+def _array_leaves(tree) -> list:
+    """The array leaves of a nest of (named) tuples, dicts and arrays."""
+    if isinstance(tree, Mapping):
+        return [leaf for value in tree.values() for leaf in _array_leaves(value)]
+    if isinstance(tree, tuple):
+        return [leaf for value in tree for leaf in _array_leaves(value)]
+    return [tree] if hasattr(tree, "shape") else []
 
 
 def train_state_from_flax(jax_state, model: torch.nn.Module, cfg: ExperimentConfig,
