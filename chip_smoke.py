@@ -224,6 +224,31 @@ and nothing falls back to a plain version.
    ``synthetic:svhn_cropped``, 20 steps with EMA, the loss finite and
    falling, checkpointed, and a resumed ``Trainer`` whose state equals it
    bit for bit. It prints one ``parallel:`` JSON line.
+16. sharded serving (``models/export.py`` ``mesh=``), model05 f32 at full
+   width with phase 14's seeded glorot weights, every count set to 0
+   before and read after (no likelihood kernel may launch: the programs
+   hold aten operations and the functional all-gather only): (a) a world
+   of one over NCCL (``make_mesh(MeshConfig())``): the sampler at n = 1024
+   and the reconstructor and encoder at batch 128 exported single-device
+   and sharded, each loaded with ``load_exported`` and run on the same seed
+   (and seeded images) under phase 13's cuDNN flags, the sharded outputs
+   bit-equal to the single-device ones; the two samplers timed in turns
+   (CUDA events, median of ``SERVE_REPS`` calls), export and load seconds
+   and MB a file; (b) two processes of this script (``--task export``,
+   then fresh ones with ``--task serve``) on the one card over gloo: both
+   ranks export, the fresh ranks load the files and run them, each rank's
+   outputs against (a)'s single-device ones (floats within ``SERVE_TOL``,
+   the sampler's uint8 images equal but for one level on at most
+   ``SERVE_PIXEL_SHARE`` of the pixels) and bit-equal across the ranks;
+   where there are two cards or more the same at min(cards, 4) ranks over
+   NCCL, one card each (``move_to_device_pass`` takes rank 0's program to
+   each rank's card). NCCL runs the programs' traced all-gather as it is;
+   over gloo ``load_exported`` runs it as the eager collective, which takes
+   CUDA tensors where the functional one crashes. It prints one
+   ``export_mesh:`` JSON line. Phase 16
+   alone, from the repository's root on the card's machine: ``python3 -c
+   "import chip_smoke as c; smi = c.phase_device();
+   c.phase_export_mesh(smi)"``.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -2718,10 +2743,13 @@ def _rank_rates(mesh) -> dict:
     return out
 
 
-def spawn_ranks(world: int, backend: str, work: str) -> list:
+def spawn_ranks(world: int, backend: str, work: str, task: str = "parallel",
+                files: str = "") -> list:
     """``world`` processes of this script, each one rank of ``backend``'s
-    group (gloo: all on card 0; with NCCL: one card each); every process is
-    waited for or killed. -> their outputs in rank order."""
+    group (gloo: all on card 0; with NCCL: one card each) running ``task``
+    (phase 15's "parallel", or phase 16's "export" or "serve" of the
+    programs in ``files``); every process is waited for or killed. -> their
+    outputs in rank order."""
     os.makedirs(work, exist_ok=True)
     store = os.path.join(work, "store")
     procs = []
@@ -2733,7 +2761,8 @@ def spawn_ranks(world: int, backend: str, work: str) -> list:
             with open(os.path.join(work, f"rank{rank}.log"), "w") as log:
                 procs.append(subprocess.Popen(
                     ["python3", os.path.abspath(__file__), "--rank", str(rank), "--world",
-                     str(world), "--store", store, "--out", work, "--backend", backend],
+                     str(world), "--store", store, "--out", work, "--backend", backend,
+                     "--task", task, "--files", files],
                     env=env, stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + PARALLEL_CHILD_TIMEOUT
         for p in procs:
@@ -2752,7 +2781,7 @@ def spawn_ranks(world: int, backend: str, work: str) -> list:
             logs.append(log.read())
     for rank, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"phase 15: rank {rank} of {world} ({backend}) failed (exit "
+            raise AssertionError(f"{task}: rank {rank} of {world} ({backend}) failed (exit "
                                  f"{p.returncode}; killed after {PARALLEL_CHILD_TIMEOUT} s if "
                                  f"negative):\n{log[-6000:]}")
     return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
@@ -3021,6 +3050,216 @@ def _mesh_trainer(root, mesh):
     return counts, report
 
 
+# phase 16, sharded serving: model05's sampler at SERVE_N images, its
+# reconstructor and encoder at a batch of BATCH
+SERVE_N = 1024
+SERVE_WHATS = ("sampler", "reconstructor", "encoder")
+# the sharded programs of several ranks against the single-device one on the
+# same seed: a shard runs its convolutions at a smaller batch, where cuDNN may
+# pick another algorithm and move a float32 value by a few ulps; floats within
+# rtol = atol = SERVE_TOL (the JAX package's sharded export test), the
+# sampler's uint8 images equal but for one level on at most SERVE_PIXEL_SHARE
+# of the pixels
+SERVE_TOL = 1e-5
+SERVE_PIXEL_SHARE = 1e-3
+SERVE_REPS = 5
+
+
+def _export_programs(model, cfg, params, root: str, mesh) -> dict:
+    """model05's three programs exported into ``root`` (sharded over
+    ``mesh`` where given) -> {what: (path, export seconds)}."""
+    from vae_mdl_tpu_torch.models.export import (
+        export_encoder,
+        export_reconstructor,
+        export_sampler,
+    )
+
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for what in SERVE_WHATS:
+        path = os.path.join(root, f"{what}.pt2")
+        t0 = time.perf_counter()
+        if what == "sampler":
+            export_sampler(model, cfg, params, n=SERVE_N, path=path, mesh=mesh)
+        else:
+            fn = export_encoder if what == "encoder" else export_reconstructor
+            fn(model, cfg, params, (BATCH,) + tuple(cfg.image_shape), path=path, mesh=mesh)
+        out[what] = (path, time.perf_counter() - t0)
+    return out
+
+
+def _serve(serve, what: str):
+    """One call of a loaded program on ``SEED`` (and the seeded images);
+    the output on the host, a tuple for the encoder."""
+    x = images(BATCH).astype(np.float32) / 255.0
+    got = serve(SEED) if what == "sampler" else serve(SEED, x)
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+    return tuple(t.cpu() for t in got)
+
+
+def _serve_all(files: dict) -> tuple:
+    """Each program of ``files`` loaded and run once under phase 13's cuDNN
+    flags -> ({what: output}, {what: load seconds})."""
+    outs, load_s = {}, {}
+    for what, (path, _) in files.items():
+        t0 = time.perf_counter()
+        serve = load_exported(path)
+        load_s[what] = time.perf_counter() - t0
+        outs[what] = _deterministic(_serve, serve, what)
+    return outs, load_s
+
+
+def serving_child(task: str, rank: int, world: int, store: str, out_dir: str, backend: str,
+                  files: str) -> None:
+    """One rank of phase 16 (b): ``task`` "export" exports the three
+    programs sharded over the ranks into ``files``; "serve" loads them in
+    this fresh process and runs each. Writes ``out_dir/rank<r>.pt``."""
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed(f"file://{store}", world, rank, backend=backend, timeout=240)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        if task == "export":
+            cfg = MODELS["model05"]
+            model = seeded_model(cfg)
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            out = _export_programs(model, cfg, params, files, make_mesh(MeshConfig()))
+        else:
+            outs, load_s = _serve_all({what: (os.path.join(files, f"{what}.pt2"), 0.0)
+                                       for what in SERVE_WHATS})
+            out = {"outputs": outs, "load_s": load_s, "device": torch.cuda.current_device()}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _serving_gap(got: tuple, want: tuple, what: str) -> dict:
+    """How far a sharded program's output is from the single-device one's;
+    raises past the limits."""
+    if what == "sampler":
+        diff = (got[0].int() - want[0].int()).abs()
+        gap = {"max_levels": int(diff.max()), "pixel_share": float((diff > 0).float().mean())}
+        if got[0].dtype != torch.uint8 or got[0].shape != want[0].shape or \
+                gap["max_levels"] > 1 or gap["pixel_share"] > SERVE_PIXEL_SHARE:
+            raise AssertionError(f"sharded serving: the sampler's images differ: {gap}")
+        return gap
+    if len(got) != len(want) or any(a.shape != b.shape for a, b in zip(got, want)):
+        raise AssertionError(f"sharded serving: the {what}'s outputs have other shapes")
+    excess = max(float(((a - b).abs() - SERVE_TOL - SERVE_TOL * b.abs()).max())
+                 for a, b in zip(got, want))
+    gap = {"max_abs": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+           "tolerance_excess": excess}
+    if excess > 0:
+        raise AssertionError(f"sharded serving: the {what} differs: {gap}")
+    return gap
+
+
+def _ranks_serving(world: int, backend: str, root: str, want: dict) -> dict:
+    """Phase 16 (b): ``world`` ranks export the programs, ``world`` fresh
+    ones serve them; each rank's outputs against ``want`` (the single-device
+    program's), and the ranks' outputs bit-equal to each other."""
+    files = os.path.join(root, "files")
+    t0 = time.perf_counter()
+    exported = spawn_ranks(world, backend, os.path.join(root, "export"), "export", files)
+    export_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = spawn_ranks(world, backend, os.path.join(root, "serve"), "serve", files)
+    serve_wall = time.perf_counter() - t0
+    gaps = {}
+    for what in SERVE_WHATS:
+        outs = [rank["outputs"][what] for rank in served]
+        for r, out in enumerate(outs[1:], 1):
+            if not all(torch.equal(a, b) for a, b in zip(out, outs[0])):
+                raise AssertionError(f"sharded serving: rank {r}'s {what} differs from rank 0's")
+        gaps[what] = _serving_gap(outs[0], want[what], what)
+    return {"gaps": gaps, "ranks_bit_equal": True,
+            "devices": [rank["device"] for rank in served],
+            "export_s": {w: [rank[w][1] for rank in exported] for w in SERVE_WHATS},
+            "load_s": [rank["load_s"] for rank in served],
+            "export_wall_s": export_wall, "serve_wall_s": serve_wall}
+
+
+def phase_export_mesh(smi: str) -> dict:
+    """Phase 16, sharded serving; see the module docstring."""
+    import torch.distributed as dist
+
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+
+    with tempfile.TemporaryDirectory() as root:
+        init_distributed(f"file://{root}/store", world_size=1, rank=0)
+        try:
+            return _phase_export_mesh(root, smi)
+        finally:
+            dist.destroy_process_group()
+
+
+def _phase_export_mesh(root: str, smi: str) -> dict:
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    before = launches_now()
+    cfg = MODELS["model05"]
+    model = seeded_model(cfg)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    report = {"card": smi, "backend_world_of_one": str(torch.distributed.get_backend()),
+              "sampler_n": SERVE_N, "batch": BATCH}
+
+    # (a) a world of one over NCCL: the sharded programs against the
+    # single-device ones, bit for bit, and the sampler's rate in turns
+    files = {"single": _export_programs(model, cfg, params, f"{root}/single", None),
+             "sharded": _export_programs(model, cfg, params, f"{root}/sharded",
+                                         make_mesh(MeshConfig()))}
+    outs, load_s = {}, {}
+    for kind, progs in files.items():
+        outs[kind], load_s[kind] = _serve_all(progs)
+    for what in SERVE_WHATS:
+        if not all(torch.equal(a, b) for a, b in zip(outs["sharded"][what],
+                                                     outs["single"][what])):
+            raise AssertionError(f"sharded serving (a): the world-of-one {what} is not "
+                                 "bit-equal to the single-device program")
+    serves = {kind: load_exported(files[kind]["sampler"][0]) for kind in files}
+    ms = {kind: [] for kind in serves}
+    for rep in range(SERVE_REPS + 1):
+        for kind in (list(serves) if rep % 2 == 0 else list(reversed(serves))):
+            _, seconds = cuda_seconds(lambda kind=kind: serves[kind](SEED))
+            if rep:
+                ms[kind].append(seconds * 1e3)
+    report["world_of_one"] = {
+        "bit_equal": True,
+        "sampler_imgs_per_sec": {k: SERVE_N / (float(np.median(v)) / 1e3) for k, v in ms.items()},
+        "sampler_ms": ms,
+        "export_s": {k: {w: f[1] for w, f in progs.items()} for k, progs in files.items()},
+        "load_s": load_s,
+        "pt2_mb": {k: {w: os.path.getsize(f[0]) / 1e6 for w, f in progs.items()}
+                   for k, progs in files.items()}}
+    say(f"sharded serving (a): a world of one over {report['backend_world_of_one']}: the "
+        f"sharded sampler (n = {SERVE_N}), reconstructor and encoder (batch {BATCH}) bit-equal "
+        f"to the single-device programs; sampler imgs/s in turns "
+        f"{report['world_of_one']['sampler_imgs_per_sec']}; on {smi}")
+
+    # (b) two ranks on the one card over gloo: exported on both, served in
+    # fresh processes, against (a)'s single-device outputs
+    report["two_gloo_ranks"] = _ranks_serving(2, "gloo", f"{root}/gloo2", outs["single"])
+    say(f"sharded serving (b): two gloo ranks on card 0, exported and served in fresh "
+        f"processes, against the single-device programs: {report['two_gloo_ranks']['gaps']}")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world = min(n_cards, 4)
+        report[f"nccl_{world}"] = _ranks_serving(world, "cpu:gloo,cuda:nccl",
+                                                 f"{root}/nccl{world}", outs["single"])
+        say(f"sharded serving (b): {world} ranks over NCCL, one card each: "
+            f"{report[f'nccl_{world}']['gaps']}")
+    launched = launched_since(before)
+    if launched:
+        raise AssertionError(f"sharded serving launched likelihood kernels: {launched}")
+    say("export_mesh: " + json.dumps(report))
+    return report
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3058,6 +3297,7 @@ def main() -> None:
     by_path["model05 trainer"] = timed("training run", phase_trainer, smi)
     by_path["model05 cli"] = timed("CLI", phase_cli, smi)
     by_path.update(timed("parallel", phase_parallel, smi))
+    timed("sharded serving", phase_export_mesh, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -3148,9 +3388,13 @@ def main() -> None:
 if __name__ == "__main__":
     import sys
 
-    if "--rank" in sys.argv:  # one rank of phase 15 (b), started by spawn_ranks
+    if "--rank" in sys.argv:  # one rank of phase 15 (b) or 16 (b), started by spawn_ranks
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
-        parallel_child(int(args["--rank"]), int(args["--world"]), args["--store"],
-                       args["--out"], args["--backend"])
+        if args["--task"] == "parallel":
+            parallel_child(int(args["--rank"]), int(args["--world"]), args["--store"],
+                           args["--out"], args["--backend"])
+        else:
+            serving_child(args["--task"], int(args["--rank"]), int(args["--world"]),
+                          args["--store"], args["--out"], args["--backend"], args["--files"])
     else:
         main()

@@ -175,10 +175,13 @@ def test_load_exported_moves_the_program_to_the_device(tmp_path, monkeypatch):
 
 
 def test_mesh_raises():
+    """``mesh=`` exports the sharded layout, which needs a process group
+    (tests/test_torch_export_mesh.py runs it over gloo ranks): without one
+    it raises, naming that need."""
     cfg, model, params = _model("model01")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(RuntimeError, match="needs a process group.*init_distributed"):
         export_sampler(model, cfg, params, n=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(RuntimeError, match="needs a process group.*init_distributed"):
         export_encoder(model, cfg, params, (2, 28, 28, 1), mesh=object())
 
 
@@ -216,5 +219,39 @@ def test_cli_export(tmp_path, monkeypatch, capsys):
     latents = load_exported(str(tmp_path / "assets" / "model01_encoder.pt2"), "cpu")(
         0, torch.zeros(8, 28, 28, 1))
     assert latents[0].shape == (8, 100)
-    with pytest.raises(SystemExit, match="parallel"):
-        main(["export", "model01", "--mesh", "4x2"] + common)
+    # --mesh none stays the single-device program, as no --mesh does
+    main(["export", "model01", "--what", "encoder", "--n", "8", "--mesh", "none"] + common)
+    assert "layout=single-device" in capsys.readouterr().out
+
+
+def test_cli_export_mesh_under_torchrun(tmp_path):
+    """``torchrun --standalone --nproc-per-node 2 -m vae_mdl_tpu_torch
+    export model01 --device cpu --mesh 2``: rank 0 alone prints the sharded
+    layout of the two ranks and writes the file, which serves in two fresh
+    gloo ranks and gives the single-device program's latents."""
+    import re
+    import subprocess
+    import sys
+
+    import torch_parallel_worker as W
+
+    out = str(tmp_path / "enc.pt2")
+    env = {k: v for k, v in os.environ.items() if k not in W._DROP}
+    env.update(PYTHONPATH=W.REPO, OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "vae_mdl_tpu_torch", "export", "model01", "--device", "cpu", "--mesh", "2",
+         "--what", "encoder", "--n", "8", "--dataset", "synthetic:mnist", "--batch-size", "8",
+         "--checkpoint-dir", str(tmp_path / "ckpt"), "--log-dir", str(tmp_path / "tb"),
+         "--out", out],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert re.findall(r"layout=(.*?)\) to", run.stdout) == ["sharded (2, 1)"], run.stdout
+    x = _images(MODELS["model01"], 8, seed=2).numpy()
+    served = W.spawn("export_mesh", 2, tmp_path / "serve",
+                     {"phase": "load", "loads": [("enc", out, 5, x)]})
+    cfg, model, params = _model("model01")
+    want = make_encoder_fn(model)(params, torch.Generator().manual_seed(5), torch.from_numpy(x))
+    for rank in served:
+        np.testing.assert_allclose(rank["enc"][0].numpy(), want[0].numpy(), rtol=1e-5,
+                                   atol=1e-5)

@@ -396,9 +396,104 @@ def elastic_restore(rank, world, inputs):
     return out
 
 
+def serving_model(name, params=None):
+    """(cfg, model, params) on the CPU: ``"model01"`` (the zoo's) or
+    ``"narrow"`` (``narrow_model``) from seed 0, or with ``params`` (a
+    state_dict) in place of the seeded weights."""
+    from vae_mdl_tpu_torch.models.zoo import MODELS
+
+    cfg = MODELS["model01"] if name == "model01" else narrow_model()
+    model = build_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if params is not None:
+        model.load_state_dict(params)
+    return cfg, model, {n: p.detach() for n, p in model.named_parameters()}
+
+
+def export_mesh(rank, world, inputs):
+    """Sharded serving (models/export.py), one phase a set of processes.
+
+    ``phase == "export"``: each entry of ``inputs["exports"]`` (``mesh``,
+    ``model``, ``params`` key or None, ``what``, global batch ``n``,
+    ``path``, where ``{rank}`` in it is this rank's number) exported with
+    ``mesh=make_mesh(MeshConfig(*mesh))``: -> {path: (the bytes' length,
+    or the bytes where the entry has ``keep``; the file's existence after
+    the call)}.
+    ``phase == "load"``: each entry of ``inputs["loads"]`` (``key``,
+    ``path``, ``seed``, the global ``images`` or None) loaded with
+    ``load_exported(path, "cpu")`` and run: -> {key: output}; each entry of
+    ``inputs["raw"]`` (the same) served without the loader
+    (``torch_alone``); each entry of ``inputs["refusals"]`` (the same,
+    expected to raise) -> {key: the error's type and message}."""
+    from vae_mdl_tpu_torch.models.export import (
+        export_encoder,
+        export_reconstructor,
+        export_sampler,
+        load_exported,
+    )
+
+    out = {}
+    if inputs["phase"] == "export":
+        meshes = {}
+        for e in inputs["exports"]:
+            if e["mesh"] not in meshes:
+                meshes[e["mesh"]] = make_mesh(c.MeshConfig(*e["mesh"]))
+            cfg, model, params = serving_model(e["model"], inputs["params"].get(e["params"]))
+            path = e["path"].format(rank=rank)
+            mesh = meshes[e["mesh"]]
+            if e["what"] == "sampler":
+                blob = export_sampler(model, cfg, params, n=e["n"], path=path, mesh=mesh)
+            else:
+                fn = export_encoder if e["what"] == "encoder" else export_reconstructor
+                blob = fn(model, cfg, params, (e["n"],) + tuple(cfg.image_shape), path=path,
+                          mesh=mesh)
+            out[path] = (blob if e.get("keep") else len(blob), os.path.exists(path))
+        return out
+    for key, path, seed, images in inputs["loads"]:
+        data = () if images is None else (torch.from_numpy(images),)
+        got = load_exported(path, "cpu")(seed, *data)
+        out[key] = tuple(got) if isinstance(got, tuple) else got
+    for key, path, seed, images in inputs.get("raw", ()):
+        got = torch_alone(path, seed, images)
+        out[key] = tuple(got) if isinstance(got, tuple) else got
+    for key, path, seed, images in inputs.get("refusals", ()):
+        try:
+            data = () if images is None else (torch.from_numpy(images),)
+            load_exported(path, "cpu")(seed, *data)
+            out[key] = None
+        except (RuntimeError, ValueError) as err:
+            out[key] = (type(err).__name__, str(err))
+    return out
+
+
+def torch_alone(path, seed, images):
+    """A sharded file served as a process with torch alone would serve it:
+    ``torch.export.load``, this rank's rows of the noise (drawn at the
+    global shape from ``seed``, as ``load_exported`` draws it) and of the
+    images, as ``mesh.json`` says, into the program's ``module()``."""
+    import json
+
+    from vae_mdl_tpu_torch.models.inference import draw_noise
+
+    extra = {"noise.json": "", "mesh.json": ""}
+    program = torch.export.load(path, extra_files=extra)
+    spec = [(e["name"], tuple(e["shape"]), e["kind"])
+            for e in json.loads(extra["noise.json"])["noise"]]
+    layout = json.loads(extra["mesh.json"])
+    shards = np.asarray(layout["ranks"]).reshape(layout["shards"], -1)
+    index = int(np.nonzero((shards == dist.get_rank()).any(axis=1))[0][0])
+    per = layout["batch"] // layout["shards"]
+    noise = draw_noise(spec, torch.Generator().manual_seed(seed), torch.device("cpu"))
+    inputs = [t.narrow(axis, index * per, per)
+              for t, axis in zip(noise, layout["noise_batch_axes"])]
+    if images is not None:
+        inputs.append(torch.from_numpy(images).narrow(0, index * per, per))
+    return program.module()(*inputs)
+
+
 SCENARIOS = {"dp_suite": dp_suite, "ladder_suite": ladder_suite, "tp_suite": tp_suite,
              "eval_suite": eval_suite, "trainer_suite": trainer_suite,
-             "elastic_save": elastic_save, "elastic_restore": elastic_restore}
+             "elastic_save": elastic_save, "elastic_restore": elastic_restore,
+             "export_mesh": export_mesh}
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the launcher's variables a rank must not inherit: it is given its rank

@@ -30,7 +30,9 @@ and ``--mesh D|DxS|DxSxM`` lays the ranks out (``parallel.mesh.make_mesh``;
 without it, ``cfg.mesh`` where there are several ranks). Only rank 0 prints
 results and writes files.
 ``export`` writes a ``torch.export`` program (``.pt2``) for the device it
-runs on. ``describe`` builds the model on the CPU and launches nothing.
+runs on; with an explicit ``--mesh`` it joins the process group too and
+writes the batch-sharded serving layout over the ranks. ``describe`` builds
+the model on the CPU and launches nothing.
 """
 from __future__ import annotations
 
@@ -218,19 +220,26 @@ def _device(args) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _joined_mesh(args, cfg):
+    """Join the process group, where torchrun started this process, and
+    lay the ranks out: the mesh, or None for one device."""
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(device=args.device)
+    return _make_mesh_or_none(args.mesh, cfg.mesh, args.device)
+
+
 def _trainer(args, cfg, distributed: bool = False):
     """The command's Trainer; ``distributed``: join the process group
-    first, where torchrun started this process, and lay the ranks out."""
-    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    first and lay the ranks out (``_joined_mesh``)."""
     from vae_mdl_tpu_torch.train.trainer import Trainer
 
     mesh = None
     if distributed:
-        init_distributed(device=args.device)
-        mesh = _make_mesh_or_none(args.mesh, cfg.mesh, args.device)
+        mesh = _joined_mesh(args, cfg)
     elif args.mesh not in (None, "none"):
         raise SystemExit(f"--mesh {args.mesh!r}: {args.cmd} runs on one device; train, "
-                         "eval and parity take a mesh (parallel/)")
+                         "eval, parity and export take a mesh (parallel/)")
     return Trainer(cfg, device=_device(args), mesh=mesh)
 
 
@@ -430,27 +439,40 @@ def cmd_sample(args) -> None:
 
 def cmd_export(args) -> None:
     """A ``torch.export`` program with the weights in it, servable with
-    torch alone (``models/export.py``), for the device of ``--device``."""
+    torch alone (``models/export.py``), for the device of ``--device``.
+
+    An explicit ``--mesh D|DxS|DxSxM`` (under torchrun, one rank a card, or
+    gloo ranks with ``--device cpu``; a single process given ``--mesh 1`` is
+    a world of one) exports the batch-sharded serving layout over the ranks:
+    each rank runs its rows of the batch and every rank returns the whole
+    batch; rank 0 writes the file, which serves in a process group of the
+    same size. The weights are whole on every rank (the Trainer takes no
+    mesh). Without ``--mesh``, or with ``--mesh none``, the program is
+    single-device however many ranks run, as in the JAX package."""
     from vae_mdl_tpu_torch.models import export as mexport
     from vae_mdl_tpu_torch.train.state import eval_params
+    from vae_mdl_tpu_torch.train.trainer import Trainer
 
-    if args.mesh not in (None, "none"):
-        raise SystemExit(f"--mesh {args.mesh!r}: {mexport.MESH_REFUSAL}")
     cfg = _no_resume(_apply_overrides(_base_config(args), args))
-    trainer = _trainer(args, cfg)
+    mesh = _joined_mesh(args, cfg) if args.mesh not in (None, "none") else None
+    trainer = Trainer(cfg, device=_device(args))
     _restore_weights(trainer, cfg, args, "export")
     params = eval_params(cfg.train, trainer.state)
     out = args.out or f"./assets/{cfg.model.name}_{args.what}.pt2"
-    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    if _is_rank0():
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     if args.what == "sampler":
-        blob = mexport.export_sampler(trainer.model, cfg.model, params, n=args.n, path=out)
+        blob = mexport.export_sampler(trainer.model, cfg.model, params, n=args.n, path=out,
+                                      mesh=mesh)
     else:
         fn = (mexport.export_reconstructor if args.what == "reconstructor"
               else mexport.export_encoder)
         blob = fn(trainer.model, cfg.model, params, (args.n,) + tuple(cfg.model.image_shape),
-                  path=out)
-    print(f"[export] wrote {args.what} ({len(blob)} bytes, device={trainer.device.type}, "
-          f"layout=single-device) to {out}")
+                  path=out, mesh=mesh)
+    layout = "single-device" if mesh is None else f"sharded {tuple(mesh.mesh.shape)}"
+    if _is_rank0():
+        print(f"[export] wrote {args.what} ({len(blob)} bytes, device={trainer.device.type}, "
+              f"layout={layout}) to {out}")
 
 
 def cmd_convert(args) -> None:
@@ -763,7 +785,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="importance samples for the final eval "
                              "(default: cfg.train.n_eval_samples = 5000)")
         sp.add_argument("--mesh", help="DxS or DxSxM rank mesh (data x sample x model); "
-                                       "'none' for one device (train, eval, parity)")
+                                       "'none' for one device (train, eval, parity; "
+                                       "export: the sharded serving layout)")
         sp.add_argument("--bf16", action="store_true", help="bfloat16 conv/matmul body")
         sp.add_argument("--likelihood-io-dtype", choices=["bfloat16", "float32"], default=None,
                         help="quantize the decoder-head -> likelihood boundary tensor (mdl); "
@@ -889,6 +912,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--json", action="store_true",
                     help="emit the card as one JSON object (with the full config)")
     sp.set_defaults(fn=cmd_describe)
+    p.subcommands = tuple(sub.choices)  # python -m vae_mdl_tpu_torch's dispatch
     return p
 
 
