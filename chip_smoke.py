@@ -249,6 +249,29 @@ and nothing falls back to a plain version.
    alone, from the repository's root on the card's machine: ``python3 -c
    "import chip_smoke as c; smi = c.phase_device();
    c.phase_export_mesh(smi)"``.
+17. the measurement entry points, at model05's (and the ladders') full
+   width: (a) ``python -m vae_mdl_tpu_torch.bench`` in a fresh process at
+   ``bench.py``'s settings, its last line printed on a line of its own, its
+   keys exactly ``bench.KEYS`` and every number in it finite, and its
+   launches (the ``launches:`` line of its progress; every MoDL and DL
+   launch on the tile path, the probe kernel for the SFU floor) into the
+   kernels line as the ``bench`` path; (b) the MoDL forward on model05's
+   own head output at ``MEASURE_SHAPES``, the shapes the bench and the
+   probes launch that phases 4 and 10 do not (the bench's eval ``[200,
+   128]`` with the bf16 boundary, the k-chunk sweep's 50 and 250, the eval
+   grid's, the k-hat probe's and kernel_bench's batches with the float32
+   boundary), against the plain version over slices of the samples
+   (``ATOL``, ``RTOL``), each on the tile path, timed beside its bound; (c)
+   every probe of the measurement entry points (``probes/``: prod_attribution
+   to kernel_bench) once, at full width with fewer repeats (and
+   ``PROBE_SAMPLES`` samples where it evaluates: a cut in depth, the
+   k-chunks keep their shapes; kernel_bench without its ``torch.compile``
+   arm, a comparison its own run times), its output's structure and every
+   attribution difference finite, the eval grid at ``GRID_POINTS``, each
+   probe's launches counted from 0 into the kernels line as ``probe
+   <name>``; (d) ``scripts.dump_assets`` on a checkpoint of 4 training
+   steps, which writes the three grids. It prints one ``measurement:`` JSON
+   line (the bench's line, the shapes' cases, each probe's numbers).
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -278,7 +301,8 @@ sizes its grid); the MoDL forward and the DL pair also ``device_ms`` and
 model's own head output (model05's at k = 100 for the MoDL forward,
 model03's at k = 100 for the DL forward and k = 5 for its backward:
 ``model_head_device_ms``, ``model_head_device_ms_direct``, with the DL
-pair's ``model_head_bound_ms``), and the DL pair's ``ladder_heads`` the
+pair's ``model_head_bound_ms``), the MoDL forward's ``measurement_shapes``
+(phase 17's cases: ms, plain_ms, bound_ms a shape), and the DL pair's ``ladder_heads`` the
 same on each ladder's head (phase 12, with ``plain_ms``); the DL and null
 pairs' ``launches_by_memory_path`` splits their main-path launches by memory
 path;
@@ -302,6 +326,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -3260,6 +3285,245 @@ def _phase_export_mesh(root: str, smi: str) -> dict:
     return report
 
 
+# -- phase 17: the measurement entry points ------------------------------------
+
+# The MoDL forward's shapes that the bench and the probes launch and the
+# earlier phases do not: (k, batch, boundary) on model05's own head output,
+# bf16 body. bf16: the bench's eval and its k-chunk sweep; float32: the eval
+# grid, the k-hat probe and kernel_bench, perf_probe.
+MEASURE_SHAPES = ((200, 128, "bfloat16"), (50, 128, "bfloat16"), (250, 128, "bfloat16"),
+                  (100, 100, "float32"), (250, 100, "float32"), (100, 250, "float32"),
+                  (250, 250, "float32"), (100, 500, "float32"), (100, 25, "float32"))
+# images the plain version takes at once (phase 4's eval case: 100 x 128)
+PLAIN_IMAGES = 12800
+# samples a smoke eval of the probes draws: a cut in depth (the k-chunks keep
+# the probes' shapes); the bench runs at its own 5000
+PROBE_SAMPLES = 1000
+# the eval grid's points this phase runs (batch, k-chunk): those that fit
+GRID_POINTS = ((100, 100), (100, 250), (250, 100), (250, 250), (500, 100))
+BENCH_TIMEOUT = 600
+
+
+def measure_shape(k: int, batch_size: int, boundary: str) -> dict:
+    """The MoDL forward on model05's head output at (k, batch) against the
+    plain version over slices of the samples, timed and bounded."""
+    from vae_mdl_tpu_torch.bench import eval_config
+
+    cfg = eval_config({"likelihood_io_dtype": "bfloat16"} if boundary == "bfloat16" else {})
+    batch = torch.as_tensor(images(batch_size), device="cuda")
+    x, p = roofline.head_parameters(cfg, batch, k)
+    name = f"{dtype_name(p.dtype)} k={k} B={batch_size}"
+    path = mdl_kernel.forward_path(p)
+    if path != "tiled" or p.dtype != getattr(torch, boundary):
+        raise AssertionError(f"model05 head {name}: {path} path, {p.dtype}")
+    step = max(1, PLAIN_IMAGES // batch_size)
+
+    def plain():
+        return torch.cat([mixture_log_prob(x, p[i:i + step].float()) for i in range(0, k, step)])
+
+    with torch.inference_mode():
+        got = mdl_kernel.mdl_log_prob(x, p)
+        want = plain()
+        err = (got - want).abs()
+        excess = float((err - (ATOL + RTOL * want.abs())).max())
+        max_err = float(err.max())
+        del err, want
+        ms = cuda_ms(lambda: mdl_kernel.mdl_log_prob(x, p), 5)
+        plain_ms = cuda_ms(plain, 1)
+    counts = modl_branch_counts(x, p)
+    calls = mdl_cuda_transcendentals(counts, got.numel(), N_MIX)
+    bound_ms, bound_by, by = bound(distinct_bytes(x, p, got),
+                                   modl_ops(counts, got.numel(), N_MIX, backward=False), calls)
+    say(f"kernel model05 head {name}, {path} path: max|d|={max_err:.3e} (tolerance excess "
+        f"{excess:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (slices of {step}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {bounds_text(by)}; {bound_ms / ms:.0%} reached)")
+    if excess > 0 or not torch.isfinite(got).all():
+        raise AssertionError(f"model05 head {name}: kernel and plain version differ")
+    del x, p, got
+    torch.cuda.empty_cache()
+    return dict(shape=f"model05 head {name}", path=path, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bounds=by)
+
+
+def _launched(per_variant: dict) -> dict:
+    """A probe's launches summed over its variants (each counted from 0)."""
+    total: dict = {}
+    for counts in per_variant.values():
+        for kernel, n in counts.items():
+            total[kernel] = total.get(kernel, 0) + n
+    return total
+
+
+def _finite(what: str, values) -> None:
+    for key, v in values.items():
+        if isinstance(v, bool) or isinstance(v, str):
+            continue
+        if v is None or not np.isfinite(v):
+            raise AssertionError(f"{what}: {key} = {v}")
+
+
+def run_bench() -> tuple:
+    """(a): ``python -m vae_mdl_tpu_torch.bench`` in a fresh process -> (its
+    last line, parsed, and its launches by path from its progress)."""
+    from vae_mdl_tpu_torch.bench import KEYS
+
+    proc = subprocess.run([sys.executable, "-m", "vae_mdl_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        raise AssertionError(f"the bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    line = json.loads(last)
+    say(last)
+    if tuple(line) != KEYS:
+        raise AssertionError(f"the bench's keys {list(line)} are not {list(KEYS)}")
+    _finite("the bench's line", line)
+    progress = [ln for ln in proc.stderr.splitlines() if ln.startswith("launches: ")]
+    counts = json.loads(progress[-1][len("launches: "):])
+    for kernel in ("mdl_log_prob tiled", "mdl_log_prob_backward tiled", "dl_log_prob tiled",
+                   "dl_log_prob_backward tiled", "sfu_probe"):
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"the bench launched no {kernel}: {counts}")
+    for kernel in ("mdl_log_prob direct", "mdl_log_prob_backward direct", "dl_log_prob direct",
+                   "dl_log_prob_backward direct"):
+        if counts.get(kernel, 0):
+            raise AssertionError(f"the bench took a direct path: {counts}")
+    return line, counts
+
+
+def run_probes(root: str) -> dict:
+    """(c) and (d): each probe once at full width, fewer repeats (and
+    ``PROBE_SAMPLES`` where it evaluates) -> {probe: (its launches, its
+    numbers)}."""
+    from vae_mdl_tpu_torch.probes import (
+        ablation_attribution,
+        biladder_ablation,
+        eval_attribution,
+        eval_sweep,
+        kernel_bench,
+        khat_overhead,
+        objective_cost,
+        perf_probe,
+        prod_attribution,
+        scale_probe,
+        stability_overhead,
+        trace_profile,
+    )
+    from vae_mdl_tpu_torch.scripts import dump_assets
+
+    quiet = lambda line: None  # noqa: E731  (each probe's summary is checked and printed here)
+    short = dict(n_iters=1, n_repeats=2)
+    out = {}
+
+    def probe(label, fn, check, counted=False):
+        """Run ``fn``; ``check`` reads (launches, numbers) off its result, or
+        with ``counted`` (numbers) while the launches are counted here."""
+        t0 = time.perf_counter()
+        reset_probe_counts()
+        result = fn()
+        if counted:
+            launches = kernel_structure.launched()
+            numbers = check(result)
+        else:
+            launches, numbers = check(result)
+        _finite(f"probe {label}", numbers)
+        out[label] = (launches, numbers)
+        say(f"probe {label} ({time.perf_counter() - t0:.1f} s): {json.dumps(numbers)}; "
+            f"launches {launches}")
+
+    def attribution(r):
+        return _launched(r["launches"]), r["attribution"]
+
+    probe("prod_attribution", lambda: prod_attribution.run(say=quiet, **short), attribution)
+    probe("ablation_attribution", lambda: ablation_attribution.run(say=quiet, **short),
+          attribution)
+
+    def grid(r):
+        failed = {point: v for point, v in r.items() if "failed" in v}
+        if failed:
+            raise AssertionError(f"eval grid points failed: {failed}")
+        return (_launched({p: v["launches"] for p, v in r.items()}),
+                {p: v["imgs_per_s"] for p, v in r.items()})
+
+    for bs, kc in GRID_POINTS:
+        probe(f"eval_sweep grid bs={bs} k_chunk={kc}",
+              lambda: eval_sweep.grid(PROBE_SAMPLES, (bs,), (kc,), say=quiet), grid)
+    probe("eval_sweep kchunk", lambda: eval_sweep.kchunk(PROBE_SAMPLES, n_timed=2, say=quiet),
+          lambda r: (_launched({k: v["launches"] for k, v in r.items()}),
+                     {k: v["median"] for k, v in r.items()}))
+    probe("eval_attribution", lambda: eval_attribution.run(PROBE_SAMPLES, n_timed=1, say=quiet),
+          attribution)
+    probe("khat_overhead", lambda: khat_overhead.run(n_samples=PROBE_SAMPLES, say=quiet),
+          lambda r: (_launched(r["launches"]), r["imgs_per_sec"]))
+    probe("objective_cost", lambda: objective_cost.run(say=quiet, **short),
+          lambda r: (r["launches"], {f"{m} {v}": t for m, by in r["imgs_per_sec"].items()
+                                     for v, t in by.items()}))
+    probe("stability_overhead", lambda: stability_overhead.run(say=quiet),
+          lambda r: (r["launches"], r["imgs_per_sec"]))
+    probe("scale_probe", lambda: scale_probe.run(say=quiet, n=1),
+          lambda r: (r["launches"], {k: v["imgs_per_s"] for k, v in r["probes"].items()}))
+    probe("perf_probe", lambda: perf_probe.run(say=quiet, steps=10,
+                                               eval_over={"n_samples": PROBE_SAMPLES}),
+          lambda r: (_launched(r["launches"]), r["imgs_per_sec"]))
+    probe("biladder_ablation", lambda: biladder_ablation.run(say=quiet, **short),
+          lambda r: (_launched(r["launches"]), r["ms"]))
+
+    def trace(r):
+        if r["clock"] != "device" or r["busy_ms"] <= 0:
+            raise AssertionError(f"trace_profile read no device time: {r}")
+        return {"busy_ms": r["busy_ms"], "span_ms": r["span_ms"]}
+
+    probe("trace_profile", lambda: trace_profile.run(say=quiet, top=40), trace, counted=True)
+
+    def bench_arms(r):
+        if r["path"] != "tiled":
+            raise AssertionError(f"kernel_bench took the {r['path']} path")
+        if r["kernel"]["rel"] > SUM_RTOL:
+            raise AssertionError(f"kernel_bench: the kernel and the plain arm disagree: {r}")
+        return {"plain_ms": r["plain"]["ms"], "kernel_ms": r["kernel"]["ms"],
+                "kernel_gb_per_s": r["kernel_gb_per_s"]}
+
+    # the torch.compile arm (a comparison on no path; ~20 s of compile) is left
+    # to the probe's own run
+    probe("kernel_bench", lambda: kernel_bench.run(("plain", "kernel"), reps=5, say=quiet),
+          bench_arms, counted=True)
+
+    # (d) the three grids from a checkpoint of a few steps
+    cfg = trainer_config(f"{root}/assets", n_updates=4)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, eval_interval=2,
+                                                             snapshot_interval=0))
+    with contextlib.redirect_stdout(io.StringIO()):
+        Trainer(cfg).fit()
+        dump_assets.run("model05", cfg.train.checkpoint_dir, "best", f"{root}/grids", cfg=cfg)
+    written = sorted(os.listdir(f"{root}/grids"))
+    want = [f"model05_{tag}.png" for tag in ("inputs", "recon", "samples")]
+    if written != want:
+        raise AssertionError(f"dump_assets wrote {written}, not {want}")
+    say(f"dump_assets: {written}")
+    return out
+
+
+def phase_measurement(smi: str) -> dict:
+    """Phase 17, the measurement entry points; see the module docstring.
+    -> (the phase's launches by path: the bench's and each probe's; the
+    MoDL forward's cases at ``MEASURE_SHAPES``)."""
+    line, bench_counts = run_bench()
+    shapes = [measure_shape(k, b, boundary) for k, b, boundary in MEASURE_SHAPES]
+    with tempfile.TemporaryDirectory() as root:
+        probes = run_probes(root)
+    say("measurement: " + json.dumps({"bench": line, "shapes": shapes, "probes": {
+        name: numbers for name, (_, numbers) in probes.items()}, "nvidia_smi": smi}))
+    for name in ("trace_profile", "kernel_bench", "eval_sweep kchunk", "prod_attribution"):
+        if probes[name][0].get("mdl_log_prob tiled", 0) < 1:
+            raise AssertionError(f"probe {name} launched no MoDL forward on the tile path")
+    for name, (counts, _) in probes.items():  # the model's heads are channels-last
+        if any(n for kernel, n in counts.items() if kernel.endswith(" direct")):
+            raise AssertionError(f"probe {name} took a direct path: {counts}")
+    by_path = {"bench": bench_counts}
+    by_path.update({f"probe {name}": counts for name, (counts, _) in probes.items()})
+    return by_path, shapes
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3298,6 +3562,8 @@ def main() -> None:
     by_path["model05 cli"] = timed("CLI", phase_cli, smi)
     by_path.update(timed("parallel", phase_parallel, smi))
     timed("sharded serving", phase_export_mesh, smi)
+    measure_counts, measure_shapes = timed("measurement entry points", phase_measurement, smi)
+    by_path.update(measure_counts)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -3346,7 +3612,8 @@ def main() -> None:
         record("mdl_log_prob", MODL_SOURCE, REPLACES, max_err,
                fwd_cases[f"K3f/K1f eval float32 k=100 B={BATCH} {modl}"],
                model_head_device_ms=fwd_cases["model05 head f32 k=100"]["device_ms"],
-               model_head_device_ms_direct=fwd_cases["model05 head f32 k=100"]["device_ms_direct"]),
+               model_head_device_ms_direct=fwd_cases["model05 head f32 k=100"]["device_ms_direct"],
+               measurement_shapes=measure_shapes),
         record("mdl_log_prob_backward", MODL_SOURCE, REPLACES_BACKWARD, bwd_err["float32"],
                bwd_cases[f"K1b/K3b float32 k=5 B={BATCH} {modl}"],
                max_abs_err_bf16=bwd_err["bfloat16"], tolerance_excess=bwd_excess),

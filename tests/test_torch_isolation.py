@@ -40,7 +40,11 @@ for name in names:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "vae_mdl_tpu"))
 wanted = ["ops.cuda.sfu_probe", "ops.cuda.io_probe", "ops.cuda.mdl_null", "utils.flops",
           "utils.timing", "probes.roofline", "probes.kernel_isolate", "probes.kernel_isolate2",
-          "probes.kernel_structure"]
+          "probes.kernel_structure", "bench", "probes.prod_attribution",
+          "probes.ablation_attribution", "probes.eval_sweep", "probes.eval_attribution",
+          "probes.khat_overhead", "probes.objective_cost", "probes.stability_overhead",
+          "probes.scale_probe", "probes.perf_probe", "probes.biladder_ablation",
+          "probes.trace_profile", "probes.kernel_bench", "scripts.dump_assets"]
 bad += [w for w in wanted if "vae_mdl_tpu_torch." + w not in names]
 print(len(names), bad)
 """
@@ -51,7 +55,7 @@ def test_importing_every_module_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True).stdout
     n_modules, bad = out.split(maxsplit=1)
-    assert int(n_modules) >= 32  # the probes, utils.flops and utils.timing among them
+    assert int(n_modules) >= 46  # the probes, the bench, utils.flops and utils.timing
     assert bad.strip() == "[]"
 
 
@@ -241,3 +245,55 @@ def test_the_probes_need_a_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
     assert mdl_kernel.mdl_log_prob.__module__ == mdl_kernel.__name__  # nothing left swapped
+
+
+# the measurement entry points, by module, with the arguments a call needs
+# beyond the device
+MEASUREMENT_ENTRIES = {
+    "bench": {}, "prod_attribution": {}, "ablation_attribution": {}, "eval_sweep": {},
+    "eval_attribution": {}, "khat_overhead": {}, "objective_cost": {}, "stability_overhead": {},
+    "scale_probe": {}, "perf_probe": {}, "biladder_ablation": {}, "trace_profile": {},
+    "kernel_bench": {"arms": ("plain",)},
+    "dump_assets": {"model": "model05", "checkpoint_dir": "no-such-dir"},
+}
+
+
+def _entry(name):
+    import importlib
+
+    package = ("vae_mdl_tpu_torch" if name == "bench" else
+               "vae_mdl_tpu_torch.scripts" if name == "dump_assets" else "vae_mdl_tpu_torch.probes")
+    return importlib.import_module(f"{package}.{name}").run
+
+
+@pytest.mark.parametrize("name", sorted(MEASUREMENT_ENTRIES))
+def test_the_measurement_entries_need_a_card_unless_asked_for_the_cpu(name, monkeypatch):
+    """Without a card each entry raises before it builds anything, unless it
+    is given ``device="cpu"``: then it gets past the device check (and here
+    stops at the first thing it builds, stubbed to raise)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from vae_mdl_tpu_torch.utils import timing
+
+    run, kwargs = _entry(name), MEASUREMENT_ENTRIES[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(**kwargs)
+
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached
+
+    # past the device check every entry builds a model (the trainer's too)
+    for module in (timing, __import__("vae_mdl_tpu_torch.train.trainer", fromlist=["x"])):
+        monkeypatch.setattr(module, "build_model", reached)
+    monkeypatch.setattr(timing, "seeded_model", reached)
+    monkeypatch.setattr("vae_mdl_tpu_torch.probes.kernel_bench.inputs", reached)
+    monkeypatch.setattr("vae_mdl_tpu_torch.probes.biladder_ablation.check_manual_exact",
+                        reached)
+    for module in ("bench", "probes.eval_sweep", "probes.khat_overhead", "probes.perf_probe",
+                   "probes.trace_profile"):
+        monkeypatch.setattr(f"vae_mdl_tpu_torch.{module}.seeded_model", reached)
+    with pytest.raises(Reached):
+        run(device="cpu", **kwargs)

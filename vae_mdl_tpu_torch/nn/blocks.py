@@ -253,6 +253,13 @@ class EncoderBlock(nn.Module):
         return on_merged(self.forward_nchw, x)
 
 
+def upsample(x: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize of an ``[N, C, H, W]`` tensor to ``size`` with
+    half-pixel centres: ``jax.image.resize(..., "bilinear")`` for an
+    upscale."""
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+
 class DecoderBlock(nn.Module):
     """A bilinear r-times upsample (half-pixel centres, as
     ``jax.image.resize``), then ``n_blocks`` residual blocks."""
@@ -267,8 +274,7 @@ class DecoderBlock(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        x = F.interpolate(x, size=(h * self.rate, w * self.rate), mode="bilinear",
-                          align_corners=False)
+        x = upsample(x, (h * self.rate, w * self.rate))
         for block in self.blocks:
             x = block.forward_nchw(x)
         return x

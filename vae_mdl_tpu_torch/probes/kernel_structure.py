@@ -32,7 +32,7 @@ from typing import Callable, Dict
 
 import torch
 
-from vae_mdl_tpu_torch.ops.cuda import dl_kernel, mdl_kernel, mdl_null
+from vae_mdl_tpu_torch.ops.cuda import dl_kernel, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.utils.timing import LIKELIHOOD_CLASSES, timed_train_step
 
 STEPS = ("full", "dma", "staged", "dl_head")
@@ -67,6 +67,25 @@ def reset_counts() -> None:
         kernels.backward_launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
+    sfu_probe.launches = 0
+
+
+def counts_by_path() -> Dict[str, int]:
+    """Every likelihood kernel's launches since ``reset_counts``, each also
+    split by memory path (``"mdl_log_prob tiled"``), and the probe kernel's."""
+    out = dict(launch_counts(), sfu_probe=sfu_probe.launches)
+    for kernels, name in ((mdl_kernel, "mdl_log_prob"), (mdl_null, "mdl_null"),
+                          (dl_kernel, "dl_log_prob")):
+        forward = "mdl_null_forward" if name == "mdl_null" else name
+        backward = "mdl_null_backward" if name == "mdl_null" else f"{name}_backward"
+        out.update({f"{forward} {p}": n for p, n in kernels.launches_by_path.items()})
+        out.update({f"{backward} {p}": n for p, n in kernels.backward_launches_by_path.items()})
+    return out
+
+
+def launched() -> Dict[str, int]:
+    """``counts_by_path`` without the kernels that did not launch."""
+    return {kernel: n for kernel, n in counts_by_path().items() if n}
 
 
 def measure(label: str, spc: int = 10, n_iters: int = 5, n_repeats: int = 6) -> dict:

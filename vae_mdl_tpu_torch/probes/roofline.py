@@ -25,6 +25,9 @@ share of the card's transcendental throughput do the MoDL kernels reach?
    device-busy time;
 5. the kernels' device time per launch against their floors.
 
+``train_sfu_floor`` prices model05's train step the way ``bench.py``'s
+``_vpu_floor`` does, for the bench's ``model05_sfu_floor_ms``.
+
 Run on a CUDA card: ``python -m vae_mdl_tpu_torch.probes.roofline``.
 """
 from __future__ import annotations
@@ -34,10 +37,12 @@ from typing import Callable, Dict
 import torch
 
 from vae_mdl_tpu_torch.models.vae import build_model
+from vae_mdl_tpu_torch.models.zoo import experiment
 from vae_mdl_tpu_torch.ops.cuda import mdl_kernel, sfu_probe
 from vae_mdl_tpu_torch.utils.flops import (
     cascade_transcendentals,
     mdl_cuda_transcendentals,
+    mdl_train_transcendentals,
     mdl_transcendental_census,
     modl_branch_counts,
     mufu_instructions,
@@ -132,6 +137,18 @@ def in_step_mixture_cost(spc: int = 10, n_iters: int = 5, n_repeats: int = 6) ->
     dl = timed_train_step("model05", spc, n_iters, n_repeats, model_over={"likelihood": "dl"})
     return {"full": full, "dl": dl, "mixture_ms": full["ms"] - dl["ms"],
             "mixture_busy_ms": full["busy_ms"] - dl["busy_ms"]}
+
+
+def train_sfu_floor(step_seconds: float, repeats: int = 5):
+    """(floor seconds, floor / step): model05's MoDL likelihood per optimizer
+    step (``mdl_train_transcendentals``, the Pallas census at batch 128, k =
+    5) priced at the loop kernel's measured per-op rates
+    (``sfu_probe.measure_rates``), against a measured step time: the
+    counterpart of ``bench.py``'s ``_vpu_floor``."""
+    cfg = experiment("model05")
+    counts = mdl_train_transcendentals(cfg.model, cfg.data.batch_size)
+    floor = sfu_probe.sfu_floor_seconds(counts, sfu_probe.measure_rates(repeats=repeats))
+    return floor, floor / step_seconds
 
 
 def run(repeats: int = 5, spc: int = 10, n_iters: int = 5, n_repeats: int = 6,
