@@ -272,6 +272,36 @@ and nothing falls back to a plain version.
    <name>``; (d) ``scripts.dump_assets`` on a checkpoint of 4 training
    steps, which writes the three grids. It prints one ``measurement:`` JSON
    line (the bench's line, the shapes' cases, each probe's numbers).
+18. the compiled train step (``train/capture.py``), under cuDNN's
+   deterministic flags (set for the phase and put back): on the card every
+   step factory returns a CUDA graph of the step or of its whole window, so
+   every training path above (phases 9-17) already ran captured steps, and
+   their kernels' launches were counted at each replay. Here (a) for each of
+   ``CAPTURE_CASES`` (model05 f32 and bf16, model03 f32, model01, the
+   device-data step, model05 with beta warm-up, skip, clip, EMA and
+   gradient accumulation 2; batch 128 and full width), a captured window
+   of ``CAPTURE_STEPS`` steps against as many eager steps from the same
+   seed (single steps through the step's eager body; the device-data step's
+   eager window): params, optimizer state, EMA, the step and the window's
+   metrics bit for bit, where two eager runs repeat each other bit for bit
+   (else within their own gap, printed with the config); (b) exact resume:
+   5 captured steps, ``state_dict()``, a state of another model loaded, 5
+   more through the same step and through one captured afresh, against 10
+   straight, and the first state continued; (c) replays draw for the
+   state's step: from one state, the replay at step s twice equal, at s + 1
+   not, each bit-equal to the eager step there; (d) the main path: one
+   replay of a captured window of model05 f32 and bf16 and of model03 f32
+   under ``torch.profiler`` with every count set to 0 just before: the
+   MoDL (model03: DL) forward and backward ``CAPTURE_STEPS`` times each
+   inside the graph, all on the tile path, the host's calls that put work
+   on the card fewer than the kernels of one step, and the wrappers'
+   counts a replay equal to what the graph holds; (e) ``Trainer.fit`` on
+   model05 f32 at 1 and 10 steps a call: one capture of each step, no
+   guard warning, the windows' imgs/s; (f) the eager and the captured
+   window in turns (eager, captured, captured, eager) for ``CAPTURE_AB``
+   (model05 and model03 in f32 and bf16 at 10 steps a call, model01 at
+   100): imgs/s (median, min, sd), device-busy ms, idle share, host launch
+   calls and device kernels a step. It prints one ``capture:`` JSON line.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -350,7 +380,12 @@ from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, m
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
 from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
 from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
-from vae_mdl_tpu_torch.train.steps import make_multi_train_step, make_train_step
+from vae_mdl_tpu_torch.train.steps import (
+    make_device_data_train_step,
+    make_multi_train_step,
+    make_train_step,
+    reduce_scan_metrics,
+)
 from vae_mdl_tpu_torch.train.trainer import Trainer
 from vae_mdl_tpu_torch.utils.flops import (
     branch_counts,
@@ -2096,6 +2131,9 @@ def states_equal(a, b) -> bool:
     same = []
     for x, y in ((a.params, b.params), (a.opt_state, b.opt_state),
                  (a.ema_params, b.ema_params)):
+        if x is None or y is None:  # no EMA copy
+            same.append(x is y)
+            continue
         tree_map(lambda u, v: same.append(torch.equal(u, v)), x, y)
     return a.step == b.step and all(same)
 
@@ -2103,7 +2141,7 @@ def states_equal(a, b) -> bool:
 def first_difference(a, b) -> str:
     """The first leaf where two states differ, and by how much."""
     for tree_name, x, y in (("params", a.params, b.params), ("ema", a.ema_params, b.ema_params)):
-        for name in x:
+        for name in x or ():
             if not torch.equal(x[name], y[name]):
                 return (f"{tree_name} {name}: max |diff| "
                         f"{float((x[name] - y[name]).abs().max()):.3e}")
@@ -3524,6 +3562,330 @@ def phase_measurement(smi: str) -> dict:
     return by_path, shapes
 
 
+# -- phase 18: the compiled train step ------------------------------------------
+
+CAPTURE_STEPS = 10
+# (label, zoo name, configs_of key, train overrides, factory)
+CAPTURE_CASES = (
+    ("model05 f32", "model05", "f32", {}, "multi"),
+    ("model05 bf16", "model05", "bf16", {}, "multi"),
+    ("model03 f32", "model03", "f32", {}, "multi"),
+    ("model01", "model01", "f32", {}, "multi"),
+    ("model05 device data", "model05", "f32", {}, "device"),
+    ("model05 warm-up, skip, clip, EMA, accumulation", "model05", "f32",
+     dict(beta_warmup_steps=4, grad_skip_threshold=1e6, grad_clip_norm=1.0, ema_decay=0.999,
+          grad_accum_steps=2), "multi"),
+)
+CAPTURE_DATA = 1024  # images of the device-data step's dataset
+# A/B: (label, zoo name, configs_of key, steps a call)
+CAPTURE_AB = (("model05 f32", "model05", "f32", 10), ("model05 bf16", "model05", "bf16", 10),
+              ("model03 f32", "model03", "f32", 10), ("model03 bf16", "model03", "bf16", 10),
+              ("model01", "model01", "f32", 100))
+CAPTURE_AB_CALLS = 3  # timed calls a turn, after a warm-up call
+# the host's calls that put work on the card
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def capture_config(name: str, which: str, train_over: dict):
+    cfg = experiment(name, model=configs_of(name, plain=False)[which])
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=BATCH),
+                               train=dataclasses.replace(cfg.train, **train_over))
+
+
+def capture_pool(name: str, n: int) -> torch.Tensor:
+    rng = np.random.default_rng(SEED)
+    return torch.as_tensor(rng.integers(0, 256, (n, BATCH) + tuple(MODELS[name].image_shape),
+                                        dtype=np.uint8), device="cuda")
+
+
+def trace_launches(fn):
+    """``fn()`` under ``torch.profiler``. -> (host ms, {kernel: (launches,
+    device ms)}, calls the host made that put work on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, host = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            count, ms = kernels.get(evt.key, (0, 0.0))
+            kernels[evt.key] = (count + evt.count, ms + evt.self_device_time_total / 1e3)
+        elif evt.key in HOST_LAUNCHES:
+            host += evt.count
+    if sum(ms for _, ms in kernels.values()) <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return wall_ms, kernels, host
+
+
+def _fresh(cfg, kind: str, n: int):
+    """A model from the seed, its state and the step under test."""
+    model = seeded_model(cfg.model)
+    tx = make_optimizer(cfg.train)
+    if kind == "device":
+        step = make_device_data_train_step(model, cfg, tx, n_steps=n, n_data=CAPTURE_DATA)
+    elif n == 1:
+        step = make_train_step(model, cfg, tx)
+    else:
+        step = make_multi_train_step(model, cfg, tx, n)
+    return model, create_train_state(model, cfg.train), step
+
+
+def _state_gap(a, b) -> float:
+    """The largest |difference| over params, optimizer state and EMA."""
+    gaps = []
+    for x, y in ((a.params, b.params), (a.opt_state, b.opt_state),
+                 (a.ema_params, b.ema_params)):
+        if x is not None and y is not None:
+            tree_map(lambda u, v: gaps.append(
+                float((u.detach().double() - v.detach().double()).abs().max())), x, y)
+    return max(gaps + [0.0])
+
+
+def _metrics_equal(a: dict, b: dict) -> bool:
+    same = []
+    tree_map(lambda u, v: same.append(torch.equal(u, v)), a, b)
+    return a.keys() == b.keys() and all(same)
+
+
+def _eager_window(cfg, kind: str, inputs):
+    """CAPTURE_STEPS eager steps from the seed: single steps on ``inputs``
+    (the batches), or the device-data window's eager body on the dataset.
+    -> (state, metrics of the window)."""
+    if kind == "device":
+        _, state, step = _fresh(cfg, kind, CAPTURE_STEPS)
+        return step.eager(state, inputs)
+    _, state, step = _fresh(cfg, kind, 1)
+    window = []
+    for batch in inputs:
+        state, metrics = step.eager(state, batch)
+        window.append(metrics)
+    return state, reduce_scan_metrics(window)
+
+
+def capture_case(label, name, which, train_over, kind) -> dict:
+    """A captured window of CAPTURE_STEPS steps against as many eager steps,
+    from one seed: bit for bit where two eager runs are (else within what
+    they differ by, stated)."""
+    cfg = capture_config(name, which, train_over)
+    inputs = (torch.as_tensor(images(CAPTURE_DATA, MODELS[name].image_shape), device="cuda")
+              if kind == "device" else capture_pool(name, CAPTURE_STEPS))
+    one, one_metrics = _eager_window(cfg, kind, inputs)
+    two, two_metrics = _eager_window(cfg, kind, inputs)
+    repeat = states_equal(one, two) and _metrics_equal(one_metrics, two_metrics)
+    tolerance = 0.0 if repeat else _state_gap(one, two)
+    _, state, step = _fresh(cfg, kind, CAPTURE_STEPS)
+    state, metrics = step(state, inputs)
+    torch.cuda.synchronize()
+    equal = states_equal(state, one) and _metrics_equal(metrics, one_metrics)
+    gap = _state_gap(state, one)
+    say(f"capture {label}: a captured window of {CAPTURE_STEPS} steps ({kind}) against "
+        f"{CAPTURE_STEPS} eager steps: params, optimizer state, EMA, step and metrics bit-equal "
+        f"{equal} (largest gap {gap:.3e}); eager against eager bit-equal {repeat}"
+        f"{'' if repeat else f', so the tolerance is their gap {tolerance:.3e}'}; "
+        f"loss {float(one_metrics['loss']):.4f}; captures {step.cache_size()}")
+    if step.cache_size() != 1 or state.step != CAPTURE_STEPS:
+        raise AssertionError(f"capture {label}: {step.cache_size()} captures, step {state.step}")
+    if (repeat and not equal) or gap > tolerance:
+        raise AssertionError(f"capture {label}: the captured window differs from the eager "
+                             f"steps by {gap:.3e} (eager against eager: {tolerance:.3e}) at "
+                             f"{first_difference(state, one)}")
+    return {"equal": equal, "eager_repeats": repeat, "gap": gap}
+
+
+def _clone_state_dict(state) -> dict:
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                    state.state_dict())
+
+
+def capture_resume() -> None:
+    """Exact resume from ``state_dict()`` in the middle of a captured run:
+    10 steps in two captured windows of 5 against 5, a save, a load into a
+    state of another model, and 5 more through the same step function and
+    through a step function captured afresh."""
+    cfg = capture_config("model05", "f32", {"ema_decay": 0.999})
+    pool = capture_pool("model05", CAPTURE_STEPS)
+    _, straight, step = _fresh(cfg, "multi", 5)
+    for half in (pool[:5], pool[5:]):
+        straight, _ = step(straight, half)
+    _, first, step = _fresh(cfg, "multi", 5)
+    first, _ = step(first, pool[:5])
+    saved = _clone_state_dict(first)
+    outcomes = {}
+    for how in ("the same step", "a step captured afresh"):
+        model = build_model(cfg.model, torch.Generator().manual_seed(SEED + 1))
+        resumed = create_train_state(model, cfg.train)
+        resumed.load_state_dict(saved)
+        again = step if how == "the same step" else make_multi_train_step(
+            model, cfg, make_optimizer(cfg.train), 5)
+        resumed, _ = again(resumed, pool[5:])
+        outcomes[how] = states_equal(resumed, straight)
+    # the state the step function was captured with continues as it was
+    first, _ = step(first, pool[5:])
+    outcomes["the first state, continued"] = states_equal(first, straight)
+    say(f"capture resume: 5 captured steps, state_dict(), a state of another model loaded, "
+        f"5 more: bit-equal to 10 straight {outcomes}")
+    if not all(outcomes.values()):
+        raise AssertionError(f"capture resume: {outcomes}")
+
+
+def capture_fresh_draws() -> None:
+    """A replay draws for the state's step: from one state, the replay at
+    step s and again at s equal, at s + 1 differ, each equal to the eager
+    step at that step."""
+    cfg = capture_config("model05", "f32", {})
+    batch = capture_pool("model05", 1)[0]
+    _, state, step = _fresh(cfg, "multi", 1)
+    state, _ = step(state, batch)  # capture
+    saved = _clone_state_dict(state)
+    losses = {}
+    for at in ("s", "s + 1", "s again"):
+        state.load_state_dict(saved)
+        state.step += at == "s + 1"
+        eager = create_train_state(seeded_model(cfg.model), cfg.train)
+        eager.load_state_dict(_clone_state_dict(state))
+        eager, want = step.eager(eager, batch)
+        state, got = step(state, batch)
+        losses[at] = float(got["loss"])
+        if not (states_equal(state, eager) and _metrics_equal(got, want)):
+            raise AssertionError(f"capture draws: the replay at {at} differs from the eager step")
+    say(f"capture draws: losses of replays from one state {losses}, each bit-equal to the "
+        f"eager step there")
+    if losses["s"] != losses["s again"] or losses["s"] == losses["s + 1"]:
+        raise AssertionError(f"capture draws: {losses}")
+
+
+def capture_trace(name: str, which: str) -> dict:
+    """One replay of a captured window under the profiler: the likelihood
+    kernels inside the graph on the tile path, launched by no host call of
+    their own. -> the replay's numbers."""
+    cfg = capture_config(name, which, {})
+    pool = capture_pool(name, CAPTURE_STEPS)
+    _, state, step = _fresh(cfg, "multi", CAPTURE_STEPS)
+    state, _ = step(state, pool)  # capture
+    before = launches_now()
+    wall, kernels, host = trace_launches(lambda: step(state, pool))
+    counted = launched_since(before)
+    own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
+    device = {}
+    for kernel, (count, _) in kernels.items():
+        for direction, fragment in (("forward", f"{own}_kernel"),
+                                    ("backward", f"{own}_backward_kernel")):
+            if fragment in kernel:
+                path = "tiled" if "_tiled" in kernel else "direct"
+                device[f"{direction} {path}"] = device.get(f"{direction} {path}", 0) + count
+    busy = sum(ms for _, ms in kernels.values())
+    out = {"device kernels": sum(c for c, _ in kernels.values()), "host launches": host,
+           "likelihood kernels by path": device, "counted": counted,
+           "wall ms": wall, "busy ms": busy}
+    say(f"capture trace {name} {which}: one replay of {CAPTURE_STEPS} steps: {out}")
+    want = {"forward tiled": CAPTURE_STEPS, "backward tiled": CAPTURE_STEPS}
+    if device != want:
+        raise AssertionError(f"capture trace {name} {which}: the graph ran {device}, not {want}")
+    if host >= out["device kernels"] / CAPTURE_STEPS:
+        raise AssertionError(f"capture trace {name} {which}: the host made {host} launch calls "
+                             f"for {out['device kernels']} kernels: not one graph")
+    if counted.get(f"{own} tiled") != CAPTURE_STEPS:
+        raise AssertionError(f"capture trace {name} {which}: the counters took {counted}")
+    return out
+
+
+def capture_trainer(root: str, smi: str) -> dict:
+    """``Trainer(cfg).fit()`` on model05 f32 with 1 and 10 steps a call:
+    the guard prints no warning and each step holds one capture."""
+    rates = {}
+    for spc in (1, 10):
+        cfg = trainer_config(f"{root}/spc{spc}")
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, steps_per_call=spc, n_updates=60, eval_interval=20,
+            report_images=False))
+        logger = RecordingLogger(cfg.train.log_dir, "model05")
+        trainer = Trainer(cfg, logger=logger)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            trainer.fit(progress=False)
+        sizes = (trainer.train_step.cache_size(), trainer.eval_step.cache_size())
+        rates[spc] = [perf["imgs_per_sec"] for _, perf in logger.perf[1:]]
+        say(f"capture trainer: steps_per_call {spc}: captures (train, eval) {sizes}, window "
+            f"imgs/s {rates[spc]} on {smi}")
+        if "WARNING" in out.getvalue() or sizes != (1, 1):
+            raise AssertionError(f"capture trainer: steps_per_call {spc}: captures {sizes}; "
+                                 f"{out.getvalue()}")
+    return rates
+
+
+def capture_ab(smi: str) -> dict:
+    """The eager window and the captured one in turns (eager, captured,
+    captured, eager), each from its own model of the seed: imgs/s of
+    CAPTURE_AB_CALLS calls a turn (CUDA events), and one traced call of each
+    for the device's busy time, its idle share and the host's launch calls,
+    a step."""
+    out = {}
+    for label, name, which, n in CAPTURE_AB:
+        cfg = capture_config(name, which, {})
+        pool = capture_pool(name, n)
+        runs = {}
+        for kind in ("eager", "captured"):
+            _, state, step = _fresh(cfg, "multi", n)
+            call = step.eager if kind == "eager" else step
+            state, _ = call(state, pool)
+            runs[kind] = [call, state]
+        rates = {"eager": [], "captured": []}
+        for kind in ("eager", "captured", "captured", "eager"):
+            call, state = runs[kind]
+            for _ in range(CAPTURE_AB_CALLS):
+                (state, _), seconds = cuda_seconds(lambda: call(state, pool))
+                rates[kind].append(n * BATCH / seconds)
+            runs[kind][1] = state
+        row = {}
+        for kind, (call, state) in runs.items():
+            wall, kernels, host = trace_launches(lambda: call(state, pool))
+            busy = sum(ms for _, ms in kernels.values())
+            r = np.asarray(rates[kind])
+            row[kind] = {"imgs_per_s": float(np.median(r)), "min": float(r.min()),
+                         "sd": float(r.std(ddof=1)), "busy_ms_a_step": busy / n,
+                         "idle_share": 1.0 - busy / wall, "host_launches_a_step": host / n,
+                         "device_kernels_a_step": sum(c for c, _ in kernels.values()) / n}
+        out[label] = row
+        say(f"capture A/B {label}, {n} steps a call, batch {BATCH}, in turns: {row} on {smi}")
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_capture(smi: str) -> dict:
+    """Phase 18, the compiled train step; see the module docstring. -> the
+    kernel launches of its main path (the captured windows of model05 f32
+    and model03 f32)."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for case in CAPTURE_CASES:
+            capture_case(*case)
+            torch.cuda.empty_cache()
+        capture_resume()
+        capture_fresh_draws()
+        reset_probe_counts()
+        before = launches_now()
+        traces = {f"{name} {which}": capture_trace(name, which)
+                  for name, which in (("model05", "f32"), ("model05", "bf16"), ("model03", "f32"))}
+        counts = launched_since(before)
+        with tempfile.TemporaryDirectory() as root:
+            trainer_rates = capture_trainer(root, smi)
+        ab = capture_ab(smi)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    say("capture: " + json.dumps({"traces": traces, "trainer_imgs_per_s": trainer_rates,
+                                  "ab": ab}))
+    return counts
+
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3564,6 +3926,7 @@ def main() -> None:
     timed("sharded serving", phase_export_mesh, smi)
     measure_counts, measure_shapes = timed("measurement entry points", phase_measurement, smi)
     by_path.update(measure_counts)
+    by_path["capture"] = timed("compiled train step", phase_capture, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'

@@ -1129,3 +1129,50 @@ def test_cli_train_and_eval_take_the_tile_path(cuda, tmp_path, monkeypatch):
     assert mdl_kernel.launches_by_path["direct"] == 0
     assert mdl_kernel.backward_launches_by_path["direct"] == 0
     assert os.path.exists(tmp_path / "assets" / "model05_samples.png")
+
+
+def test_captured_window_equals_eager_steps_bit_for_bit(cuda):
+    """On the card ``make_multi_train_step`` is one CUDA graph of its window
+    (``train/capture.py``): two calls of 2 steps equal 4 eager single steps
+    bit for bit (cuDNN's deterministic algorithms), with one capture, fresh
+    draws at each replay and the MoDL kernels' launches counted at each."""
+    from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
+    from vae_mdl_tpu_torch.train.steps import (
+        make_multi_train_step,
+        make_train_step,
+        reduce_scan_metrics,
+    )
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = experiment("model05")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=16),
+                                  train=dataclasses.replace(cfg.train, ema_decay=0.99))
+        pool = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (4, 16, 32, 32, 3),
+                                                                 dtype=np.uint8), device=cuda)
+
+        def fresh():
+            model = build_model(cfg.model, torch.Generator().manual_seed(0))
+            return model, create_train_state(model, cfg.train)
+
+        model, eager = fresh()
+        single = make_train_step(model, cfg, make_optimizer(cfg.train))
+        window = []
+        for batch in pool:
+            eager, metrics = single.eager(eager, batch)
+            window.append(metrics)
+        model, captured = fresh()
+        multi = make_multi_train_step(model, cfg, make_optimizer(cfg.train), 2)
+        captured, _ = multi(captured, pool[:2])
+        before = mdl_kernel.launches_by_path["tiled"]
+        captured, metrics = multi(captured, pool[2:])
+        torch.cuda.synchronize()
+        assert mdl_kernel.launches_by_path["tiled"] - before == 2
+        assert multi.cache_size() == 1 and captured.step == 4
+        for a, b in ((captured.params, eager.params), (captured.opt_state, eager.opt_state),
+                     (captured.ema_params, eager.ema_params),
+                     (metrics, reduce_scan_metrics(window[2:]))):
+            tree_map(lambda u, v: torch.testing.assert_close(u, v, rtol=0, atol=0), a, b)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags

@@ -45,6 +45,7 @@ from vae_mdl_tpu_torch.config import ExperimentConfig
 from vae_mdl_tpu_torch.models.objective import training_loss_fn
 from vae_mdl_tpu_torch.models.vae import prior_for
 from vae_mdl_tpu_torch.parallel.mesh import batch_sharding, mean_over_replicas
+from vae_mdl_tpu_torch.train.capture import pack_metrics
 from vae_mdl_tpu_torch.train.state import GradientTransformation, Params, TrainState
 from vae_mdl_tpu_torch.train.steps import (
     _scalarize,
@@ -68,29 +69,6 @@ def _rows(noise, rows: slice):
     if isinstance(noise, torch.Tensor):
         return noise[:, rows]
     return [layer[:, rows] for layer in noise]
-
-
-def pack_metrics(metrics: Dict[str, object]) -> Tuple[torch.Tensor, Callable]:
-    """Scalar metrics (0-d tensors or lists of them) -> one 1-d tensor and
-    the function that puts a tensor of that shape back into the dict."""
-    layout, values = [], []
-    for name, v in metrics.items():
-        parts = v if isinstance(v, (list, tuple)) else [v]
-        layout.append((name, len(parts) if isinstance(v, (list, tuple)) else None))
-        values.extend(torch.as_tensor(p).float().reshape(1) for p in parts)
-
-    def unpack(flat: torch.Tensor) -> Dict[str, object]:
-        out, i = {}, 0
-        for name, n in layout:
-            if n is None:
-                out[name] = flat[i]
-                i += 1
-            else:
-                out[name] = [flat[i + j] for j in range(n)]
-                i += n
-        return out
-
-    return torch.cat(values), unpack
 
 
 def _local_grads(model, cfg: ExperimentConfig, state: TrainState, batch: torch.Tensor,

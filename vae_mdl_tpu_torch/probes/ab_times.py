@@ -39,6 +39,16 @@ Measured:
   the model differentiates it: device kernels a call and their device ms;
 - five model03 float32 train steps under the profiler: device kernels,
   device busy and the DL kernels' device ms a step;
+- the train step as users take it (``train_rates``): ``make_multi_train_step``
+  through ``utils/timing.py``'s ``setup_scanned_step`` and
+  ``time_scanned_step`` for model05 and model03 in float32 and bfloat16 (batch
+  128, k = 5, 10 steps a call) and model01 at 100 steps a call: imgs/s
+  (median, min and sd of the timed blocks), and one traced call for the
+  device's busy ms a step, its idle share and the host's calls that put work
+  on the card (kernel launches, graph launches, copies, fills) a step; and
+  ``Trainer(cfg).fit()`` on model05 float32 at 1 and 10 steps a call: the
+  imgs/s of its throughput windows (``Perf`` in ``metrics.jsonl``) after the
+  first;
 - ``evaluate_llh`` at 5000 samples in k-chunks of 100 on one batch of 128
   of model05 and model03, float32 and bfloat16 configs, and model03's
   through the plain likelihood too (``use_pallas=False``, the control of
@@ -46,7 +56,9 @@ Measured:
   events.
 
 Inputs come from seeded generators on the card, so two checkouts see the
-same values.
+same values. A third argument ``train`` measures the train step alone:
+
+    PYTHONPATH=<old checkout> python vae_mdl_tpu_torch/probes/ab_times.py old train
 """
 from __future__ import annotations
 
@@ -318,6 +330,93 @@ def train_step_profile(say) -> dict:
     return out
 
 
+# the host's calls that put work on the card
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+# (label, zoo name, setup_scanned_step's keywords, steps a call)
+TRAIN_CASES = (
+    ("model05 f32", "model05", {}, 10),
+    ("model05 bf16", "model05", dict(compute_dtype="bfloat16",
+                                     model_over={"likelihood_io_dtype": "bfloat16"}), 10),
+    ("model03 f32", "model03", {}, 10),
+    ("model03 bf16", "model03", dict(compute_dtype="bfloat16"), 10),
+    ("model01", "model01", {}, 100),
+)
+
+
+def traced_call(fn):
+    """``fn()`` under the profiler -> (host ms, device busy ms, device
+    kernels, the host's calls that put work on the card)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, kernels, host = 0.0, 0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            busy += evt.self_device_time_total / 1e3
+            kernels += evt.count
+        elif evt.key in HOST_LAUNCHES:
+            host += evt.count
+    return wall, busy, kernels, host
+
+
+def train_rates(say) -> dict:
+    """The train step as users take it, and the trainer's windows."""
+    import os
+    import tempfile
+
+    from vae_mdl_tpu_torch.config import DataConfig, TrainConfig
+    from vae_mdl_tpu_torch.train.trainer import Trainer
+    from vae_mdl_tpu_torch.utils.timing import setup_scanned_step, time_scanned_step
+
+    out = {}
+    for label, name, setup, spc in TRAIN_CASES:
+        step, state, batch, cfg, _ = setup_scanned_step(name, spc=spc, **setup)
+        rates = time_scanned_step(step, state, batch, spc, cfg.data.batch_size)
+        holder = {"state": state}
+
+        def call():
+            holder["state"], _ = step(holder["state"], batch)
+
+        wall, busy, kernels, host = traced_call(call)
+        row = {"imgs_per_s": float(np.median(rates)), "imgs_per_s_min": float(rates.min()),
+               "imgs_per_s_sd": float(rates.std(ddof=1)), "busy_ms_a_step": busy / spc,
+               "idle_share": 1.0 - busy / wall, "device_kernels_a_step": kernels / spc,
+               "host_launches_a_step": host / spc}
+        out[f"train {label}"] = row
+        say(f"train {label} ({spc} steps a call, batch {cfg.data.batch_size}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+        del step, state, batch, holder
+        torch.cuda.empty_cache()
+    for spc in (1, 10):
+        with tempfile.TemporaryDirectory() as root:
+            cfg = dataclasses.replace(
+                experiment("model05"),
+                data=DataConfig(dataset="synthetic:svhn_cropped", batch_size=BATCH,
+                                val_batch_size=500),
+                train=TrainConfig(n_updates=60, eval_interval=20, steps_per_call=spc,
+                                  report_images=False, checkpoint_dir=f"{root}/ckpt",
+                                  log_dir=f"{root}/tb"))
+            trainer = Trainer(cfg)
+            trainer.fit(progress=False)
+            with open(os.path.join(trainer.logger.dir, "metrics.jsonl")) as f:
+                windows = [r["imgs_per_sec"] for r in map(json.loads, f)
+                           if r.get("prefix") == "Perf"][1:]
+            out[f"trainer model05 f32 spc={spc}"] = {"imgs_per_s": windows}
+            say(f"trainer model05 f32, {spc} steps a call: window imgs/s {windows}")
+            del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def eval_rates(say) -> dict:
     images = np.random.default_rng(0).integers(0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)
     rates = {}
@@ -346,7 +445,7 @@ def eval_rates(say) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) != 2:
+    if len(argv) not in (2, 3) or argv[2:] not in ([], ["train"]):
         print(__doc__)
         return 2
     if not torch.cuda.is_available():
@@ -355,6 +454,10 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     package = str(vae_mdl_tpu_torch.__path__[0])
     print(f"{argv[1]}: {package} on {torch.cuda.get_device_name(0)}", flush=True)
+    if argv[2:] == ["train"]:
+        train = train_rates(lambda line: print(f"{argv[1]}: {line}", flush=True))
+        print(json.dumps({"label": argv[1], "package": package, "train": train}))
+        return 0
     ms = kernel_times(lambda line: print(f"{argv[1]}: {line}", flush=True))
     ms.update(null_forward_ms(lambda line: print(f"{argv[1]}: {line}", flush=True)))
     ms.update(model_device_ms(lambda line: print(f"{argv[1]}: {line}", flush=True)))

@@ -96,7 +96,9 @@ def _tanh_activation(name: str):
 
 
 def _remat_residual(self, x: torch.Tensor) -> torch.Tensor:
-    return checkpoint(_real_residual, self, x, use_reentrant=False)
+    # a residual block draws nothing, so no generator state is kept for the
+    # recomputation (reading it would stop the step's CUDA-graph capture)
+    return checkpoint(_real_residual, self, x, use_reentrant=False, preserve_rng_state=False)
 
 
 @contextlib.contextmanager

@@ -8,7 +8,16 @@ and ``load_state_dict()`` make it a full resume point.
 Randomness: each step draws from generators seeded from (seed, step, crc32
 of the stream's name), as ``TrainState.next_rngs`` folds its keys in the JAX
 package, so a resumed run draws what an uninterrupted one draws, and
-streams never share numbers.
+streams never share numbers. ``stream_generators`` makes them for any step;
+``seed_streams`` seeds generators that already exist, which is how a step
+captured in a CUDA graph (``train/capture.py``) draws afresh at every
+replay: its generators are registered with the graph, which reads their
+seed and offset from device memory, and are re-seeded on the host before
+each replay.
+
+The state's tensors are its own: ``load_state_dict`` copies into them in
+place, so their addresses, which a captured step reads and writes, survive
+a resume. ``tree_leaves`` lists a tree's tensors in a fixed order.
 
 The optimizers follow optax's formulas, as ``(init, update)`` pairs on
 ``{name: tensor}`` dicts: ``adam`` (``optax.adam``), ``adamax``
@@ -26,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,11 +55,37 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of nested dicts and lists, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for value in tree.values() for leaf in tree_leaves(value)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for value in tree for leaf in tree_leaves(value)]
+    return [] if tree is None else [tree]
+
+
 def _stream_seed(seed: int, step: int, name: str, fold: Optional[int] = None) -> int:
     entropy = [seed, step, zlib.crc32(name.encode()) & 0x7FFFFFFF]
     if fold is not None:
         entropy.append(fold)
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+def seed_streams(generators: Dict[str, torch.Generator], seed: int, step: int,
+                 fold: Optional[int] = None) -> Dict[str, torch.Generator]:
+    """Seed each of ``{stream name: generator}`` for ``step`` from (seed,
+    step, crc32 of the name[, fold]), in place; a generator then draws
+    what a fresh one of ``stream_generators`` draws."""
+    for name, gen in generators.items():
+        gen.manual_seed(_stream_seed(seed, step, name, fold))
+    return generators
+
+
+def stream_generators(seed: int, step: int, streams: Sequence[str], device=None,
+                      fold: Optional[int] = None) -> Dict[str, torch.Generator]:
+    """One generator on ``device`` per stream, seeded for ``step``."""
+    return seed_streams({name: torch.Generator(device=device) for name in streams},
+                        seed, step, fold)
 
 
 @dataclasses.dataclass
@@ -74,12 +109,7 @@ class TrainState:
         """One generator per stream for this step, seeded from (seed, step,
         crc32 of the stream's name[, fold]); the parallel steps fold in the
         rank's batch shard, as the JAX package folds in the device index."""
-        out = {}
-        for name in streams:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(_stream_seed(self.seed, self.step, name, fold))
-            out[name] = gen
-        return out
+        return stream_generators(self.seed, self.step, streams, device, fold)
 
     def state_dict(self) -> dict:
         """Everything a resume needs: tensors (detached, not copied) and
@@ -95,22 +125,32 @@ class TrainState:
 
     def load_state_dict(self, state: dict) -> None:
         """Copy a ``state_dict()`` into this state; tensors keep this
-        state's devices, and the parameters are written in place."""
+        state's devices, and every tensor of the same shape and dtype is
+        written in place, so the state's tensors stay the ones a captured
+        step reads."""
         with torch.no_grad():
             for name, p in self.params.items():
                 p.copy_(state["params"][name])
-            self.opt_state = tree_map(
-                lambda mine, theirs: theirs.to(mine.device, copy=True),
-                self.opt_state, state["opt_state"])
-            if state["ema_params"] is not None:
+            self.opt_state = tree_map(_copy_into, self.opt_state, state["opt_state"])
+            if state["ema_params"] is None:
+                self.ema_params = None
+            elif self.ema_params is not None and self.ema_params.keys() == state["ema_params"].keys():
+                self.ema_params = tree_map(_copy_into, self.ema_params, state["ema_params"])
+            else:
                 device = next(iter(self.params.values())).device
                 self.ema_params = {name: e.to(device, copy=True)
                                    for name, e in state["ema_params"].items()}
-            else:
-                self.ema_params = None
         self.step = int(state["step"])
         self.seed = int(state["seed"])
         self.best_val_loss = float(state["best_val_loss"])
+
+
+def _copy_into(mine: torch.Tensor, theirs: torch.Tensor) -> torch.Tensor:
+    """``theirs`` written into ``mine`` where shape and dtype agree, else a
+    copy of ``theirs`` on ``mine``'s device."""
+    if mine.shape == theirs.shape and mine.dtype == theirs.dtype:
+        return mine.copy_(theirs)
+    return theirs.to(mine.device, copy=True)
 
 
 class GradientTransformation(NamedTuple):

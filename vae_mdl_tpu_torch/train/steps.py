@@ -10,14 +10,20 @@ stay there (the skip is a select, not a branch), and metrics come back as
 0-dimensional tensors, read when the caller wants them.
 
 The factories mirror the JAX ones: ``make_train_step`` (one step),
-``make_multi_train_step`` (a Python loop of n steps per call; equal to n
-single steps, since each step's generators derive from the state's seed and
-step), ``make_device_data_train_step`` (a dataset on the device, batches
-gathered by indices drawn there) and ``make_eval_step``. A step updates the
-state in place and returns it. Over several ranks ``mesh=`` takes the
-data-parallel step of ``parallel/spmd.py`` in its place; a state in the
-tensor-parallel layout (``parallel/tensor.py``) trains through the plain
-step too, its gradient norm summed over the ``model`` group.
+``make_multi_train_step`` (n steps a call, equal to n single steps, since
+each step's generators derive from the state's seed and step),
+``make_device_data_train_step`` (a dataset on the device, batches gathered
+by indices drawn there) and ``make_eval_step``. Each runs one body,
+``train_step_body`` (or the eval body), and returns a
+``train.capture.CapturedStep``: on the card the step, or the whole window of
+n steps, is one CUDA graph, captured at the first call of each input shape
+and replayed after, the counterpart of the JAX factories' ``jax.jit`` and
+``lax.scan``; on the CPU, and for a call that injects noise, the same body
+runs eagerly. A step updates the state in place and returns it. Over
+several ranks ``mesh=`` takes the data-parallel step of
+``parallel/spmd.py`` in its place, eagerly; a state in the tensor-parallel
+layout (``parallel/tensor.py``) trains through the plain step's body,
+eagerly, its gradient norm summed over the ``model`` group.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from vae_mdl_tpu_torch.config import ExperimentConfig
 from vae_mdl_tpu_torch.data.preprocess import binarize, dequantize, random_flip
 from vae_mdl_tpu_torch.models.objective import apply, compute_loss, training_loss_fn
 from vae_mdl_tpu_torch.models.vae import prior_for
+from vae_mdl_tpu_torch.train.capture import CapturedStep
 from vae_mdl_tpu_torch.train.state import (
     GradientTransformation,
     Params,
@@ -40,6 +47,8 @@ from vae_mdl_tpu_torch.train.state import (
 )
 
 Metrics = Dict[str, torch.Tensor]
+TRAIN_STREAMS = ("sample", "binarize", "flip")
+EVAL_STREAMS = ("eval_sample", "eval_binarize")
 
 
 def _scalarize(metrics) -> Metrics:
@@ -173,20 +182,34 @@ def preprocess_train(cfg: ExperimentConfig, batch: torch.Tensor,
     return x
 
 
-def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) -> Callable:
-    """``(state, uint8 batch[B, H, W, C]) -> (state, metrics)``."""
+def train_streams(cfg: ExperimentConfig) -> tuple:
+    """The streams a train step draws from: "sample" (the latents' noise),
+    "binarize" for a dynamically binarised Bernoulli model and "flip" under
+    ``augment_flip``."""
+    drawn = ["sample"]
+    if cfg.model.likelihood == "bernoulli" and cfg.data.dynamic_binarization:
+        drawn.append("binarize")
+    if cfg.data.augment_flip:
+        drawn.append("flip")
+    return tuple(drawn)
+
+
+def train_step_body(model, cfg: ExperimentConfig, tx: GradientTransformation) -> Callable:
+    """``body(state, batch, rngs, beta, eps=None, u=None) -> metrics``: one
+    update of ``state`` in place on ``batch`` with the step's generators
+    ``rngs`` ("sample", "binarize", "flip") and the bound's ``beta`` (a
+    float, or a 0-d tensor under a warm-up ramp). It reads nothing back
+    from the device, so a CUDA graph can hold it. ``eps``, z_1's ``[k, B,
+    n_latent]`` (``[k, B, h, w, c]`` for a ladder) or a sequence with one
+    tensor per stochastic layer, bottom up, injects the standard-normal
+    noise in place of the "sample" stream's draw, and ``u`` (``[B, H, W,
+    C]``, uniform on [0, 1)) the binarisation's uniforms in place of the
+    "binarize" stream's."""
     k = cfg.model.n_samples
 
-    def step(state: TrainState, batch: torch.Tensor, eps=None, u=None):
-        """One update of ``state`` (in place) on ``batch``; ``eps``, z_1's
-        ``[k, B, n_latent]`` (``[k, B, h, w, c]`` for a ladder) or a sequence
-        with one tensor per stochastic layer, bottom up, injects the
-        standard-normal noise in place of the "sample" stream's draw, and
-        ``u`` (``[B, H, W, C]``, uniform on [0, 1)) the binarisation's
-        uniforms in place of the "binarize" stream's."""
-        rngs = state.next_rngs("sample", "binarize", "flip", device=batch.device)
+    def body(state: TrainState, batch: torch.Tensor, rngs: Dict[str, torch.Generator], beta,
+             eps=None, u=None) -> Metrics:
         x = preprocess_train(cfg, batch, rngs, u)
-        beta = effective_beta(cfg, state.step)
         loss_fn = training_loss_fn(model, cfg, prior_for(cfg.model, x.device), x, k,
                                    rngs["sample"], beta, eps=eps)
         loss, metrics = loss_fn(state.params)
@@ -199,34 +222,64 @@ def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) ->
         out = _scalarize(metrics)
         out.update(stats)
         out["loss"] = loss.detach()
-        return state, out
+        return out
 
-    return step
+    return body
+
+
+def _captured_train_step(cfg: ExperimentConfig, window: Callable, n_steps: int,
+                         streams=TRAIN_STREAMS, drawn=()) -> CapturedStep:
+    return CapturedStep(window, n_steps, streams, train_streams(cfg) + tuple(drawn),
+                        beta_of=lambda step: effective_beta(cfg, step),
+                        tensor_betas=cfg.train.beta_warmup_steps > 0)
+
+
+def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) -> Callable:
+    """``(state, uint8 batch[B, H, W, C], eps=None, u=None) -> (state,
+    metrics)``: one update of ``state`` (in place; ``train_step_body``). On
+    the card a CUDA graph of the step, captured at the first call of each
+    batch shape and dtype and replayed after (``train/capture.py``); on
+    the CPU, and for a call that injects ``eps`` or ``u``, the same body
+    eagerly."""
+    body = train_step_body(model, cfg, tx)
+
+    def window(state, batch, rngs, betas, eps=None, u=None):
+        return body(state, batch, rngs[0], betas[0], eps, u)
+
+    return _captured_train_step(cfg, window, 1)
 
 
 def make_multi_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
                           n_steps: int, mesh=None) -> Callable:
     """``(state, batches[n, B, ...]) -> (state, metrics of the window)``:
-    ``n_steps`` updates per call, equal to as many single steps (under a
-    ``mesh``, of ``parallel.spmd.make_shard_map_train_step`` on this rank's
-    rows)."""
-    if mesh is None:
-        step = make_train_step(model, cfg, tx)
-    else:
+    ``n_steps`` updates per call, equal to as many single steps; on the card
+    one CUDA graph of the whole window, the counterpart of the JAX step's
+    ``lax.scan`` (under a ``mesh``, a Python loop of
+    ``parallel.spmd.make_shard_map_train_step`` on this rank's rows)."""
+    if mesh is not None:
         from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
 
         step = make_shard_map_train_step(model, cfg, tx, mesh)
 
-    def multi(state: TrainState, batches: torch.Tensor):
+        def multi(state: TrainState, batches: torch.Tensor):
+            if batches.shape[0] != n_steps:
+                raise ValueError(f"expected {n_steps} batches, got {batches.shape[0]}")
+            window = []
+            for batch in batches:
+                state, metrics = step(state, batch)
+                window.append(metrics)
+            return state, reduce_scan_metrics(window)
+
+        return multi
+    body = train_step_body(model, cfg, tx)
+
+    def window(state, batches, rngs, betas):
         if batches.shape[0] != n_steps:
             raise ValueError(f"expected {n_steps} batches, got {batches.shape[0]}")
-        window = []
-        for batch in batches:
-            state, metrics = step(state, batch)
-            window.append(metrics)
-        return state, reduce_scan_metrics(window)
+        return reduce_scan_metrics([body(state, batch, r, beta)
+                                    for batch, r, beta in zip(batches, rngs, betas)])
 
-    return multi
+    return _captured_train_step(cfg, window, n_steps)
 
 
 def make_device_data_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
@@ -234,14 +287,12 @@ def make_device_data_train_step(model, cfg: ExperimentConfig, tx: GradientTransf
     """``(state, data[N, H, W, C] uint8) -> (state, metrics of the window)``
     for a dataset that lives on the device: each step gathers its batch by
     indices drawn there, i.i.d. with replacement, from the "device_batch"
-    stream. Under a ``mesh`` every rank holds the whole dataset, draws the
-    same indices and gathers its rows of them for the data-parallel step
-    (``parallel.spmd.make_shard_map_train_step``)."""
+    stream; on the card one CUDA graph of the window. Under a ``mesh`` every
+    rank holds the whole dataset, draws the same indices and gathers its
+    rows of them for the data-parallel step
+    (``parallel.spmd.make_shard_map_train_step``), eagerly."""
     batch_size = cfg.data.batch_size
-    rows = slice(0, batch_size)
-    if mesh is None:
-        step = make_train_step(model, cfg, tx)
-    else:
+    if mesh is not None:
         from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
         from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
 
@@ -249,32 +300,43 @@ def make_device_data_train_step(model, cfg: ExperimentConfig, tx: GradientTransf
         index, count = batch_sharding(mesh)
         rows = slice(index * batch_size // count, (index + 1) * batch_size // count)
 
-    def multi(state: TrainState, data: torch.Tensor):
-        window = []
-        for _ in range(n_steps):
-            gen = state.next_rngs("device_batch", device=data.device)["device_batch"]
-            idx = torch.randint(0, n_data, (batch_size,), generator=gen, device=data.device)
-            state, metrics = step(state, data[idx[rows]])
-            window.append(metrics)
-        return state, reduce_scan_metrics(window)
+        def multi(state: TrainState, data: torch.Tensor):
+            window = []
+            for _ in range(n_steps):
+                gen = state.next_rngs("device_batch", device=data.device)["device_batch"]
+                idx = torch.randint(0, n_data, (batch_size,), generator=gen, device=data.device)
+                state, metrics = step(state, data[idx[rows]])
+                window.append(metrics)
+            return state, reduce_scan_metrics(window)
 
-    return multi
+        return multi
+    body = train_step_body(model, cfg, tx)
+
+    def window(state, data, rngs, betas):
+        metrics = []
+        for r, beta in zip(rngs, betas):
+            idx = torch.randint(0, n_data, (batch_size,), generator=r["device_batch"],
+                                device=data.device)
+            metrics.append(body(state, data[idx], r, beta))
+        return reduce_scan_metrics(metrics)
+
+    return _captured_train_step(cfg, window, n_steps, TRAIN_STREAMS + ("device_batch",),
+                                ("device_batch",))
 
 
 def make_eval_step(model, cfg: ExperimentConfig, n_samples: Optional[int] = None,
                    fold: Optional[int] = None) -> Callable:
     """``(state, uint8 batch) -> metrics`` on the eval weights (the EMA copy
     when enabled) with the true bound: free bits is a training-only floor.
-    ``fold`` (a rank's batch shard) is folded into the generators' seeds."""
+    ``fold`` (a rank's batch shard) is folded into the generators' seeds.
+    On the card a CUDA graph a batch shape and dtype, as the train steps."""
     k = n_samples or cfg.model.n_samples
 
-    def step(state: TrainState, batch: torch.Tensor) -> Metrics:
+    def window(state: TrainState, batch: torch.Tensor, rngs, betas) -> Metrics:
         with torch.no_grad():
-            rngs = state.next_rngs("eval_sample", "eval_binarize", device=batch.device,
-                                   fold=fold)
-            x = preprocess(cfg, batch, rngs["eval_binarize"])
+            x = preprocess(cfg, batch, rngs[0]["eval_binarize"])
             Qs, Ps, pxz = apply(model, eval_params(cfg.train, state), x, k,
-                                generator=rngs["eval_sample"])
+                                generator=rngs[0]["eval_sample"])
             loss, metrics = compute_loss(prior_for(cfg.model, x.device), Qs, Ps, pxz, x,
                                          beta=cfg.model.beta,
                                          objective=getattr(cfg.model, "objective", "iwae"),
@@ -283,4 +345,5 @@ def make_eval_step(model, cfg: ExperimentConfig, n_samples: Optional[int] = None
             out["loss"] = loss
             return out
 
-    return step
+    drawn = ("eval_sample",) + (("eval_binarize",) if "binarize" in train_streams(cfg) else ())
+    return CapturedStep(window, 1, EVAL_STREAMS, drawn, fold=fold, updates=False)

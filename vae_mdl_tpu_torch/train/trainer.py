@@ -22,8 +22,12 @@ state, the step is ``parallel.spmd.make_shard_map_train_step`` (on a state
 in the tensor-parallel layout, ``parallel.tensor.shard_state_tp``, where the
 mesh has ``model > 1``), the validation metrics are averaged over the
 ranks, so every rank keeps the same best validation loss, and only rank 0
-logs and writes ``config.json``. Left out: the JAX trainer's retrace guard,
-which counts XLA recompilations: eager PyTorch compiles nothing.
+logs and writes ``config.json``.
+
+On the card the train and eval steps are CUDA graphs, one a key
+(``train/capture.py``); the retrace guard, the JAX trainer's
+``_check_retrace``, reads each step's key cache at every eval interval and
+warns once a function when it holds more than one capture.
 """
 from __future__ import annotations
 
@@ -147,6 +151,7 @@ class Trainer:
         self.logger = logger or (MetricLogger(cfg.train.log_dir, cfg.model.name)
                                  if process_index() == 0 else _NullLogger())
         self._stream = None  # the device-prefetch stream of one fit
+        self._retrace_warned: set = set()
 
     # ------------------------------------------------------------------ utils
 
@@ -156,6 +161,28 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _check_retrace(self) -> None:
+        """Warn (once a function) if a step has been captured more than once.
+
+        A silent re-capture in the training loop is the CUDA-graph form of
+        the JAX trainer's silent retrace: an input signature drifting
+        between calls (shape, dtype, device) makes the step capture a new
+        graph instead of replaying its one, and nothing crashes. The steps
+        take ``(state, batch)`` with fixed shapes, so one capture is
+        expected; checked at every eval interval. A step without a key cache
+        (the eager mesh steps) is skipped, and the others are still
+        checked."""
+        for name, fn in (("train_step", self.train_step), ("eval_step", self.eval_step)):
+            cache_size = getattr(fn, "cache_size", None)
+            if cache_size is None:
+                continue
+            n = cache_size()
+            if n > 1 and name not in self._retrace_warned:
+                self._retrace_warned.add(name)
+                print(f"[trainer] WARNING: {name} has {n} captured variants — an input "
+                      "signature (shape/dtype/device) is drifting between calls and every "
+                      "re-capture stalls training for a warm-up and a new CUDA graph")
 
     def _record_config(self) -> None:
         """Write the resolved config as ``config.json`` beside the
@@ -288,6 +315,7 @@ class Trainer:
                 imgs_per_sec = window_imgs / dt if dt > 0 else 0.0
 
                 val_metrics = self.eval_step(self.state, self._put(next(self.val_iter)))
+                self._check_retrace()
                 if self.mesh is not None:  # the same mean on every rank
                     val_metrics = _mean_metrics(val_metrics, self.mesh)
                 val_loss = float(val_metrics["loss"])
