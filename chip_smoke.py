@@ -197,14 +197,16 @@ and nothing falls back to a plain version.
    ``make_shard_map_train_step`` and ``make_zero1_train_step`` from one
    state, batch and injected noise under phase 13's cuDNN flags, the loss,
    every parameter and both Adam moments (ZeRO-1's unflattened) within
-   ``PARALLEL_RTOL``; then 10 steps a call of each, in turns, with every
-   count set to 0 just before each call and read just after (the
-   ``model05 dp`` and ``model05 zero1`` paths): median imgs/s of 5 calls,
+   ``PARALLEL_RTOL``; then 10 steps a call of each (over NCCL CUDA graphs
+   with their collectives, phase 19), in turns, with every count set to 0
+   just before each call and read just after (the ``model05 dp`` and
+   ``model05 zero1`` paths): median imgs/s of 5 calls,
    peak memory and the gap against the plain step's rate; and
    ``evaluate_llh(mesh=)`` at 5000 samples on 256 images, through
    ``make_batch_evaluator(mesh=)`` (``model05 sharded eval``); (b) two
    processes of this script (``--rank``) on the one card over gloo, which
-   takes CUDA tensors where NCCL refuses two ranks a device: the
+   takes CUDA tensors where NCCL refuses two ranks a device (and runs the
+   steps' eager bodies, by ``train.capture.captures``): the
    data-parallel and ZeRO-1 steps on 64 rows and the matching half of the
    noise each, held against (a)'s one-rank step on all 128 (the loss within
    ``SUM_RTOL``, the moments within ``GRAD_RTOL``, the parameters within
@@ -302,6 +304,32 @@ and nothing falls back to a plain version.
    (model05 and model03 in f32 and bf16 at 10 steps a call, model01 at
    100): imgs/s (median, min, sd), device-busy ms, idle share, host launch
    calls and device kernels a step. It prints one ``capture:`` JSON line.
+19. the mesh steps as one program (``parallel/spmd.py``, ``train/steps.py``
+   with ``mesh=``, ``train/capture.py``), under phase 18's cuDNN flags: (a)
+   at a world of one over NCCL (``"cpu:gloo,cuda:nccl"``), for each of
+   ``MESH_CASES`` (model05 f32 and bf16 and model01 in a window of
+   ``MESH_STEPS`` steps of ``make_multi_train_step(mesh=)``, the device-data
+   window, ``make_shard_map_train_step``, ZeRO-1 in f32 and bf16, the
+   tensor-parallel layout as single steps and as a window; batch 128 a rank,
+   full width), the captured steps against as many eager steps of the
+   one-step body from the same seed: params, optimizer state (ZeRO-1's flat
+   slices), EMA, the step and the metrics bit for bit, where two eager runs
+   repeat each other (else within their gap), one capture each; ZeRO-1's
+   exact resume: 5 captured steps, ``state_dict()`` with the moments
+   gathered whole and re-sharded (``reshard_zero1_opt_state``) into a state
+   of another model, 5 more through the same step, against 10 straight; a
+   traced call of the captured and the eager data-parallel window (f32,
+   bf16), ZeRO-1 and the tensor-parallel window, with every count set to 0
+   before: the MoDL pair ``MESH_STEPS`` times each inside the graph on the
+   tile path, host launch calls, device and NCCL kernels a step; the eager
+   and captured rates in turns (eager, captured, captured, eager) for
+   ``MESH_AB``; (b) the same on min(cards, 4) ranks over NCCL, a card each
+   (``--task mesh_capture``), where there are two cards or more, the ranks'
+   parameters bit-equal across ranks and the slowest rank's rates; (c)
+   ``graft_entry.dryrun_multichip(min(cards, 4))`` over NCCL. It prints one
+   ``mesh capture:`` JSON line; its launches go into the kernels line as the
+   ``mesh capture`` path. Phase 19 alone: ``python3 -c "import chip_smoke
+   as c; smi = c.phase_device(); c.phase_build(); c.phase_mesh_capture(smi)"``.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -2810,9 +2838,9 @@ def spawn_ranks(world: int, backend: str, work: str, task: str = "parallel",
                 files: str = "") -> list:
     """``world`` processes of this script, each one rank of ``backend``'s
     group (gloo: all on card 0; with NCCL: one card each) running ``task``
-    (phase 15's "parallel", or phase 16's "export" or "serve" of the
-    programs in ``files``); every process is waited for or killed. -> their
-    outputs in rank order."""
+    (phase 15's "parallel", phase 16's "export" or "serve" of the
+    programs in ``files``, or phase 19's "mesh_capture"); every process is
+    waited for or killed. -> their outputs in rank order."""
     os.makedirs(work, exist_ok=True)
     store = os.path.join(work, "store")
     procs = []
@@ -3886,6 +3914,349 @@ def phase_capture(smi: str) -> dict:
 
 
 
+# -- phase 19: the mesh steps as one program -----------------------------------------
+
+MESH_STEPS = 10
+# (label, zoo name, configs_of key, kind): "window" make_multi_train_step(mesh=)
+# of MESH_STEPS steps, "device" the device-data window under the mesh, "tp
+# window" the window on a state in the tensor-parallel layout; "step"
+# make_shard_map_train_step, "zero1" make_zero1_train_step and "tp" the
+# data-parallel step on a state in the tensor-parallel layout, each called
+# MESH_STEPS times; against as many eager steps of the one-step body
+MESH_CASES = (
+    ("model05 f32 window", "model05", "f32", "window"),
+    ("model05 bf16 window", "model05", "bf16", "window"),
+    ("model01 window", "model01", "f32", "window"),
+    ("model05 f32 device data", "model05", "f32", "device"),
+    ("model05 f32 step", "model05", "f32", "step"),
+    ("model05 f32 zero1", "model05", "f32", "zero1"),
+    ("model05 bf16 zero1", "model05", "bf16", "zero1"),
+    ("model05 f32 tp", "model05", "f32", "tp"),
+    ("model05 f32 tp window", "model05", "f32", "tp window"),
+)
+# A/B under the mesh: (label, configs_of key, kind), eager and captured in turns
+MESH_AB = (("model05 f32 dp", "f32", "window"), ("model05 bf16 dp", "bf16", "window"),
+           ("model05 f32 zero1", "f32", "zero1"))
+
+
+def _tp_mesh():
+    from vae_mdl_tpu_torch.parallel.distributed import process_count
+    from vae_mdl_tpu_torch.parallel.tensor import make_tp_mesh
+
+    world = process_count()
+    return make_tp_mesh(world // 2, 2) if world % 2 == 0 else make_tp_mesh(world, 1)
+
+
+def mesh_pool(name: str, n: int, mesh) -> torch.Tensor:
+    """``n`` batches of BATCH rows, this rank's: seeded by its batch shard."""
+    from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
+
+    rng = np.random.default_rng([SEED, batch_sharding(mesh)[0]])
+    return torch.as_tensor(rng.integers(0, 256, (n, BATCH) + tuple(MODELS[name].image_shape),
+                                        dtype=np.uint8), device="cuda")
+
+
+def mesh_setup(name: str, which: str, kind: str, meshes: dict, over: dict = None,
+               seed: int = SEED):
+    """A model from ``seed`` and its state (ZeRO-1's flat moments, the
+    tensor-parallel layout on ``meshes["tp"]``, else on ``meshes["dp"]``) ->
+    (state, the step under test, the one-step factory whose eager body is
+    the reference, the inputs)."""
+    from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
+    from vae_mdl_tpu_torch.parallel.spmd import (make_shard_map_train_step,
+                                                 make_zero1_train_step, zero1_opt_state)
+    from vae_mdl_tpu_torch.parallel.tensor import shard_state_tp
+
+    cfg = capture_config(name, which, over or {})
+    mesh = meshes["tp" if kind.startswith("tp") else "dp"]
+    count = batch_sharding(mesh)[1]
+    if kind == "device":
+        # the global batch: BATCH rows a batch shard
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                batch_size=BATCH * count))
+    model = build_model(cfg.model, torch.Generator().manual_seed(seed)).eval()
+    tx = make_optimizer(cfg.train)
+    state = create_train_state(model, cfg.train)
+    if kind == "zero1":
+        state.opt_state = zero1_opt_state(tx, state.params, mesh)
+        one = make_zero1_train_step(model, cfg, tx, mesh)
+        return state, one, one, mesh_pool(name, MESH_STEPS, mesh)
+    if kind.startswith("tp"):
+        shard_state_tp(state, mesh, model=model)
+    one = make_shard_map_train_step(model, cfg, tx, mesh)
+    if kind in ("window", "tp window"):
+        step = make_multi_train_step(model, cfg, tx, MESH_STEPS, mesh=mesh)
+    elif kind == "device":
+        step = make_device_data_train_step(model, cfg, tx, MESH_STEPS, CAPTURE_DATA, mesh=mesh)
+        return state, step, one, torch.as_tensor(
+            images(CAPTURE_DATA, MODELS[name].image_shape), device="cuda")
+    else:
+        step = one
+    return state, step, one, mesh_pool(name, MESH_STEPS, mesh)
+
+
+def mesh_run(step, state, inputs, kind: str, eager: bool):
+    """The case's MESH_STEPS steps: the window in one call, else a call a
+    batch; ``eager``: through the eager body. -> (state, metrics)."""
+    call = step.eager if eager else step
+    if kind in ("window", "device", "tp window"):
+        return call(state, inputs)
+    window = []
+    for batch in inputs:
+        state, metrics = call(state, batch)
+        window.append(metrics)
+    return state, reduce_scan_metrics(window)
+
+
+def _digest(state) -> str:
+    """A hash of the parameters (the whole ones of a tensor-parallel state: a
+    collective), equal across ranks that hold equal parameters."""
+    import hashlib
+
+    from vae_mdl_tpu_torch.train.checkpoint import whole_state_dict
+
+    params = whole_state_dict(state)["params"] if state.tp_layout is not None else state.params
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(params[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_case(label, name, which, kind, meshes) -> dict:
+    """MESH_STEPS captured steps (one window, or a call each) against as many
+    eager steps of the one-step body, each from the seed, twice: bit for bit
+    where two eager runs are, else within their gap."""
+    runs = []
+    for _ in range(2):
+        state, step, one, inputs = mesh_setup(name, which, kind, meshes)
+        if kind == "device":  # the window's own eager body: its draws of rows
+            runs.append(step.eager(state, inputs))
+        else:
+            runs.append(mesh_run(one, state, inputs, "step", eager=True))
+    (one_state, one_metrics), (two_state, two_metrics) = runs
+    repeat = states_equal(one_state, two_state) and _metrics_equal(one_metrics, two_metrics)
+    tolerance = 0.0 if repeat else _state_gap(one_state, two_state)
+    state, step, _, inputs = mesh_setup(name, which, kind, meshes)
+    state, metrics = mesh_run(step, state, inputs, kind, eager=False)
+    torch.cuda.synchronize()
+    equal = states_equal(state, one_state) and _metrics_equal(metrics, one_metrics)
+    gap = _state_gap(state, one_state)
+    if step.cache_size() != 1 or state.step != MESH_STEPS:
+        raise AssertionError(f"mesh capture {label}: {step.cache_size()} captures, step "
+                             f"{state.step}")
+    if (repeat and not equal) or gap > tolerance:
+        raise AssertionError(f"mesh capture {label}: the captured steps differ from the eager "
+                             f"ones by {gap:.3e} (eager against eager: {tolerance:.3e}) at "
+                             f"{first_difference(state, one_state)}")
+    return {"equal": equal, "eager_repeats": repeat, "gap": gap,
+            "loss": float(metrics["loss"]), "digest": _digest(state)}
+
+
+def mesh_resume(meshes) -> dict:
+    """Exact resume of ZeRO-1 in the middle of a captured run: 5 steps,
+    ``state_dict()`` with the flat moments gathered whole, re-sharded
+    (``reshard_zero1_opt_state``) into a state of another model, 5 more
+    through the same step function, against 10 straight."""
+    from vae_mdl_tpu_torch.parallel.spmd import gather_zero1_opt_state, reshard_zero1_opt_state
+
+    over = {"ema_decay": 0.999}
+    pool = mesh_pool("model05", 10, meshes["dp"])
+    straight, step, _, _ = mesh_setup("model05", "f32", "zero1", meshes, over)
+    straight, _ = mesh_run(step, straight, pool, "zero1", eager=False)
+    first, step, _, _ = mesh_setup("model05", "f32", "zero1", meshes, over)
+    first, _ = mesh_run(step, first, pool[:5], "zero1", eager=False)
+    saved = _clone_state_dict(first)
+    saved["opt_state"] = gather_zero1_opt_state(first.opt_state)
+    resumed = mesh_setup("model05", "f32", "zero1", meshes, over, seed=SEED + 1)[0]
+    saved["opt_state"] = reshard_zero1_opt_state(saved["opt_state"], resumed.params,
+                                                 meshes["dp"])
+    resumed.load_state_dict(saved)
+    resumed, _ = mesh_run(step, resumed, pool[5:], "zero1", eager=False)
+    first, _ = mesh_run(step, first, pool[5:], "zero1", eager=False)
+    out = {"resumed": states_equal(resumed, straight),
+           "the first state, continued": states_equal(first, straight)}
+    if not all(out.values()):
+        raise AssertionError(f"mesh capture resume: {out}")
+    return out
+
+
+def mesh_trace(label, which, kind, meshes) -> dict:
+    """One call of the captured and of the eager steps under the profiler:
+    the MoDL pair inside the graph on the tile path, launched by no host call
+    of its own, and NCCL's kernels inside it too. -> a step's numbers."""
+    out = {}
+    for how in ("captured", "eager"):
+        state, step, _, inputs = mesh_setup("model05", which, kind, meshes)
+        state, _ = mesh_run(step, state, inputs, kind, eager=how == "eager")  # capture
+        before = launches_now()
+        wall, kernels, host = trace_launches(
+            lambda: mesh_run(step, state, inputs, kind, eager=how == "eager"))
+        counted = launched_since(before)
+        nccl = sum(c for k, (c, _) in kernels.items() if "nccl" in k.lower())
+        busy = sum(ms for _, ms in kernels.values())
+        out[how] = {"host_launches_a_step": host / MESH_STEPS,
+                    "device_kernels_a_step": sum(c for c, _ in kernels.values()) / MESH_STEPS,
+                    "nccl_kernels_a_step": nccl / MESH_STEPS, "busy_ms_a_step": busy / MESH_STEPS,
+                    "idle_share": 1.0 - busy / wall, "counted": counted}
+        if how == "captured":
+            tiled = {k: c for k, (c, _) in kernels.items() if "mdl_log_prob" in k}
+            want = {"mdl_log_prob tiled": MESH_STEPS, "mdl_log_prob_backward tiled": MESH_STEPS}
+            if {k: counted.get(k) for k in want} != want or any(
+                    "_tiled" not in k for k in tiled):
+                raise AssertionError(f"mesh trace {label}: the counters took {counted}, the "
+                                     f"graph ran {tiled}")
+            if host >= out[how]["device_kernels_a_step"]:
+                raise AssertionError(f"mesh trace {label}: {host} host launch calls for "
+                                     f"{out[how]['device_kernels_a_step']} kernels a step")
+        del state, step
+    return out
+
+
+def mesh_ab(meshes) -> dict:
+    """Eager and captured in turns (eager, captured, captured, eager), each
+    from its own model of the seed: this rank's imgs/s (BATCH rows a step)
+    over CAPTURE_AB_CALLS calls of MESH_STEPS steps a turn, CUDA events."""
+    out = {}
+    for label, which, kind in MESH_AB:
+        runs = {}
+        for how in ("eager", "captured"):
+            state, step, _, pool = mesh_setup("model05", which, kind, meshes)
+            state, _ = mesh_run(step, state, pool, kind, eager=how == "eager")
+            runs[how] = [step, state, pool]
+        rates = {"eager": [], "captured": []}
+        for how in ("eager", "captured", "captured", "eager"):
+            step, state, pool = runs[how]
+            for _ in range(CAPTURE_AB_CALLS):
+                (state, _), seconds = cuda_seconds(
+                    lambda: mesh_run(step, state, pool, kind, eager=how == "eager"))
+                rates[how].append(MESH_STEPS * BATCH / seconds)
+            runs[how][1] = state
+        out[label] = {how: {"imgs_per_s": float(np.median(r)), "min": float(np.min(r)),
+                            "sd": float(np.std(r, ddof=1))} for how, r in rates.items()}
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_capture_run(mesh) -> dict:
+    """Phase 19's checks on this rank (every rank of the group runs them in
+    step) on ``mesh`` and a tensor-parallel mesh of the same ranks -> their
+    numbers and the main path's launches."""
+    out = {"cases": {}}
+    meshes = {"dp": mesh, "tp": _tp_mesh()}
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for case in MESH_CASES:
+            out["cases"][case[0]] = mesh_case(*case, meshes)
+            torch.cuda.empty_cache()
+        out["resume"] = mesh_resume(meshes)
+        reset_probe_counts()
+        before = launches_now()
+        out["traces"] = {label: mesh_trace(label, which, kind, meshes) for label, which, kind in (
+            ("model05 f32 dp", "f32", "window"), ("model05 bf16 dp", "bf16", "window"),
+            ("model05 f32 zero1", "f32", "zero1"), ("model05 f32 tp", "f32", "tp window"))}
+        out["launches"] = launched_since(before)
+        out["ab"] = mesh_ab(meshes)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return out
+
+
+def mesh_capture_child(rank: int, world: int, store: str, out_dir: str, backend: str) -> None:
+    """One rank of phase 19 (b); writes ``out_dir/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed(f"file://{store}", world, rank, backend=backend, timeout=240)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        out = _mesh_capture_run(make_mesh(MeshConfig()))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_report(ranks: list, what: str) -> dict:
+    """The ranks' cases bit-equal in parameters across ranks, and the
+    slowest rank's rates."""
+    for label in ranks[0]["cases"]:
+        digests = {out["cases"][label]["digest"] for out in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"{what} {label}: the ranks' parameters differ")
+    cases = {label: {k: v for k, v in case.items() if k != "digest"}
+             for label, case in ranks[0]["cases"].items()}
+    ab = {label: {how: {"imgs_per_s_a_rank_slowest": min(
+        out["ab"][label][how]["imgs_per_s"] for out in ranks)} for how in ("eager", "captured")}
+        for label in ranks[0]["ab"]}
+    return {"cases": cases, "resume": ranks[0]["resume"], "traces": ranks[0]["traces"],
+            "ab": ab, "ab_rank0": ranks[0]["ab"]}
+
+
+def mesh_world_of_one(root: str, smi: str, report: dict) -> dict:
+    """Phase 19 (a): the checks at a world of one over NCCL, in this
+    process. -> the main path's launches."""
+    import torch.distributed as dist
+
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed(f"file://{root}/store", world_size=1, rank=0)
+    try:
+        report["backend"] = str(dist.get_backend())
+        one = _mesh_capture_run(make_mesh(MeshConfig()))
+    finally:
+        dist.destroy_process_group()
+    report["world_of_one"] = _mesh_report([one], "mesh capture (a)")
+    say(f"mesh capture (a): a world of one over {report['backend']}: "
+        f"{json.dumps(report['world_of_one'])} on {smi}")
+    return dict(one["launches"])
+
+
+def mesh_cards(root: str, smi: str, report: dict) -> dict:
+    """Phase 19 (b): the same checks on min(cards, 4) ranks over NCCL, one
+    card each, where there are two cards or more; then (c)
+    ``graft_entry.dryrun_multichip`` over the cards. -> the ranks' main-path
+    launches."""
+    from vae_mdl_tpu_torch import graft_entry
+
+    counts = {}
+    n_cards = torch.cuda.device_count()
+    world = min(n_cards, 4)
+    if n_cards >= 2:
+        ranks = spawn_ranks(world, "cpu:gloo,cuda:nccl", os.path.join(root, "mesh"),
+                            task="mesh_capture")
+        report[f"nccl_{world}"] = _mesh_report(ranks, f"mesh capture (b) x{world}")
+        for out in ranks:
+            for name, n in out["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+        say(f"mesh capture (b): {world} ranks over NCCL, one card each: "
+            f"{json.dumps(report[f'nccl_{world}'])} on {smi}")
+    else:
+        say("mesh capture (b): one card, so the checks at a world of several do not run")
+    t0 = time.perf_counter()
+    report["dryrun"] = graft_entry.dryrun_multichip(world)
+    say(f"mesh capture (c): graft_entry.dryrun_multichip({world}) over NCCL in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_mesh_capture(smi: str) -> dict:
+    """Phase 19, the mesh steps as one program; see the module docstring. ->
+    the kernel launches of its main path (the traced mesh steps, every
+    rank's)."""
+    report = {"card": smi}
+    with tempfile.TemporaryDirectory() as root:
+        counts = mesh_world_of_one(root, smi, report)
+        for name, n in mesh_cards(root, smi, report).items():
+            counts[name] = counts.get(name, 0) + n
+    say("mesh capture: " + json.dumps(report))
+    return counts
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took."""
     t0 = time.perf_counter()
@@ -3927,6 +4298,7 @@ def main() -> None:
     measure_counts, measure_shapes = timed("measurement entry points", phase_measurement, smi)
     by_path.update(measure_counts)
     by_path["capture"] = timed("compiled train step", phase_capture, smi)
+    by_path["mesh capture"] = timed("mesh steps as one program", phase_mesh_capture, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -4018,11 +4390,14 @@ def main() -> None:
 if __name__ == "__main__":
     import sys
 
-    if "--rank" in sys.argv:  # one rank of phase 15 (b) or 16 (b), started by spawn_ranks
+    if "--rank" in sys.argv:  # one rank of phase 15 (b), 16 (b) or 19 (b), by spawn_ranks
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         if args["--task"] == "parallel":
             parallel_child(int(args["--rank"]), int(args["--world"]), args["--store"],
                            args["--out"], args["--backend"])
+        elif args["--task"] == "mesh_capture":
+            mesh_capture_child(int(args["--rank"]), int(args["--world"]), args["--store"],
+                               args["--out"], args["--backend"])
         else:
             serving_child(args["--task"], int(args["--rank"]), int(args["--world"]),
                           args["--store"], args["--out"], args["--backend"], args["--files"])

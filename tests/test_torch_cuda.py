@@ -8,7 +8,8 @@ biladder_celeba loss and gradient through the DL kernels against the plain
 version; and the training run's card pieces: ``device_prefetch`` against
 synchronous copies (each tensor's use recorded on the consumer's stream), a
 checkpoint of CUDA state restored onto the card and the CPU, and the
-streamed top log-weights on the card against the CPU's.
+streamed top log-weights on the card against the CPU's; the mesh steps
+captured over NCCL at a world of one against their eager bodies.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -1175,4 +1176,84 @@ def test_captured_window_equals_eager_steps_bit_for_bit(cuda):
                      (metrics, reduce_scan_metrics(window[2:]))):
             tree_map(lambda u, v: torch.testing.assert_close(u, v, rtol=0, atol=0), a, b)
     finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def test_mesh_steps_captured_over_nccl_equal_eager_steps_bit_for_bit(cuda, tmp_path):
+    """At a world of one over NCCL the mesh steps are CUDA graphs with their
+    collectives inside (``train/capture.py``): two calls of a 2-step
+    ``make_multi_train_step(mesh=)`` window equal 4 eager steps of the
+    data-parallel body, and 2 calls of ``make_zero1_train_step`` 2 eager ones,
+    bit for bit (cuDNN's deterministic algorithms), one capture each, the
+    MoDL kernels' launches counted at each replay."""
+    import torch.distributed as dist
+
+    from vae_mdl_tpu_torch.config import MeshConfig
+    from vae_mdl_tpu_torch.parallel.distributed import init_distributed
+    from vae_mdl_tpu_torch.parallel.mesh import make_mesh
+    from vae_mdl_tpu_torch.parallel.spmd import (
+        make_shard_map_train_step,
+        make_zero1_train_step,
+        zero1_opt_state,
+    )
+    from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
+    from vae_mdl_tpu_torch.train.steps import make_multi_train_step, reduce_scan_metrics
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    init_distributed(f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        assert "nccl" in str(dist.get_backend())
+        mesh = make_mesh(MeshConfig())
+        cfg = experiment("model05")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=16),
+                                  train=dataclasses.replace(cfg.train, ema_decay=0.99))
+        pool = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (4, 16, 32, 32, 3),
+                                                                 dtype=np.uint8), device=cuda)
+
+        def fresh(zero1=False):
+            model = build_model(cfg.model, torch.Generator().manual_seed(0))
+            tx = make_optimizer(cfg.train)
+            state = create_train_state(model, cfg.train)
+            if zero1:
+                state.opt_state = zero1_opt_state(tx, state.params, mesh)
+            return model, tx, state
+
+        def same(a, b):
+            tree_map(lambda u, v: torch.testing.assert_close(u, v, rtol=0, atol=0), a, b)
+
+        model, tx, eager = fresh()
+        single = make_shard_map_train_step(model, cfg, tx, mesh)
+        window = []
+        for batch in pool:
+            eager, metrics = single.eager(eager, batch)
+            window.append(metrics)
+        model, tx, captured = fresh()
+        multi = make_multi_train_step(model, cfg, tx, 2, mesh=mesh)
+        captured, _ = multi(captured, pool[:2])
+        before = mdl_kernel.launches_by_path["tiled"]
+        captured, metrics = multi(captured, pool[2:])
+        torch.cuda.synchronize()
+        assert mdl_kernel.launches_by_path["tiled"] - before == 2
+        assert multi.cache_size() == 1 and captured.step == 4
+        for a, b in ((captured.params, eager.params), (captured.opt_state, eager.opt_state),
+                     (captured.ema_params, eager.ema_params),
+                     (metrics, reduce_scan_metrics(window[2:]))):
+            same(a, b)
+
+        runs = []
+        for how in ("eager", "captured"):
+            model, tx, state = fresh(zero1=True)
+            step = make_zero1_train_step(model, cfg, tx, mesh)
+            for batch in pool[:2]:
+                state, metrics = (step.eager if how == "eager" else step)(state, batch)
+            runs.append((state, metrics, step))
+        (eager, want, _), (captured, got, step) = runs
+        torch.cuda.synchronize()
+        assert step.cache_size() == 1 and captured.step == 2
+        for a, b in ((captured.params, eager.params), (captured.opt_state, eager.opt_state),
+                     (captured.ema_params, eager.ema_params), (got, want)):
+            same(a, b)
+    finally:
+        dist.destroy_process_group()
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags

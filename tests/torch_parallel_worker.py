@@ -34,7 +34,7 @@ from vae_mdl_tpu_torch.parallel.spmd import (
     zero1_opt_state,
 )
 from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
-from vae_mdl_tpu_torch.train.steps import make_train_step
+from vae_mdl_tpu_torch.train.steps import make_train_step, reduce_scan_metrics
 
 
 def narrow_model(cfg_module=c, name="narrow", n_latent=4):
@@ -490,10 +490,121 @@ def torch_alone(path, seed, images):
     return program.module()(*inputs)
 
 
+def mesh_window_suite(rank, world, inputs):
+    """The mesh windows (``make_multi_train_step(mesh=)``,
+    ``make_device_data_train_step(mesh=)``) of 10 steps against 10 calls of
+    the one-step mesh step, the device-data rows written out as the eager
+    loop drew them (the unfolded "device_batch" stream, this rank's slice of
+    the indices); under beta warm-up too, with the betas each window takes."""
+    from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
+    from vae_mdl_tpu_torch.train.steps import (
+        make_device_data_train_step,
+        make_multi_train_step,
+    )
+
+    mesh = make_mesh(c.MeshConfig())
+    index, count = batch_sharding(mesh)
+    batches = torch.from_numpy(inputs["batches"])  # [10, B, ...], the whole batches
+    rows = torch.stack([shard_batch(mesh, b) for b in batches])
+    data = torch.from_numpy(inputs["data"])
+    out = {"index": index, "folds": {}}
+    for name, train in (("plain", {}), ("warmup", {"beta_warmup_steps": 4, "ema_decay": 0.9})):
+        cfg = experiment_of(narrow_model(), **train)
+        model, tx, state = setup(cfg, inputs["params"])
+        multi = make_multi_train_step(model, cfg, tx, 10, mesh=mesh)
+        state, m = multi(state, rows)
+        out[f"{name}/window"] = (snapshot(state), _float(m), multi.cache_size())
+        out["folds"]["window"] = dict(multi.fold)
+        out[f"{name}/betas"] = [float(b) for b in multi.betas(0, "cpu")]
+        model, tx, state = setup(cfg, inputs["params"])
+        step = make_shard_map_train_step(model, cfg, tx, mesh)
+        history = []
+        for batch in rows:
+            state, m = step(state, batch)
+            history.append(m)
+        out[f"{name}/steps"] = (snapshot(state), _float(reduce_scan_metrics(history)))
+
+        model, tx, state = setup(cfg, inputs["params"])
+        device = make_device_data_train_step(model, cfg, tx, 10, len(data), mesh=mesh)
+        state, m = device(state, data)
+        out[f"{name}/device"] = (snapshot(state), _float(m))
+        out["folds"]["device"] = dict(device.fold)
+        # the eager loop as the port ran it before the window was captured
+        model, tx, state = setup(cfg, inputs["params"])
+        step = make_shard_map_train_step(model, cfg, tx, mesh)
+        per = cfg.data.batch_size // count
+        history, drawn = [], []
+        for _ in range(10):
+            gen = state.next_rngs("device_batch")["device_batch"]
+            idx = torch.randint(0, len(data), (cfg.data.batch_size,), generator=gen)
+            drawn.append(idx)
+            state, m = step(state, data[idx[index * per:(index + 1) * per]])
+            history.append(m)
+        out[f"{name}/device_steps"] = (snapshot(state), _float(reduce_scan_metrics(history)))
+        out[f"{name}/indices"] = torch.stack(drawn)
+    return out
+
+
+def retrace_suite(rank, world, inputs):
+    """``Trainer(mesh=...)``'s retrace guard over the ranks
+    (tests/test_retrace.py's cases): one key a step function across a run,
+    and one warning, once, on a drifting input signature."""
+    import contextlib
+    import io
+
+    from vae_mdl_tpu_torch.train.trainer import Trainer
+
+    workdir = inputs["workdir"]
+    out, trainers = {}, {}
+    for spc in (1, 2):
+        cfg = experiment_of(tiny_mlp(), batch_size=16, n_updates=4, eval_interval=2,
+                            steps_per_call=spc, report_images=False,
+                            checkpoint_dir=os.path.join(workdir, f"spc{spc}", "ckpt"),
+                            log_dir=os.path.join(workdir, f"spc{spc}", f"tb{rank}"))
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, dataset="synthetic:mnist", val_batch_size=32))
+        trainer = trainers[spc] = Trainer(cfg, device="cpu", mesh=make_mesh(c.MeshConfig()))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            trainer.fit(progress=False)
+        out[f"spc{spc}"] = {"sizes": (trainer.train_step.cache_size(),
+                                      trainer.eval_step.cache_size()),
+                            "n_steps": trainer.train_step.n_steps,
+                            "printed": printed.getvalue()}
+    # dtype drift: a float32 batch is another key of the same function
+    trainer = trainers[1]
+    batch = torch.zeros((8, 28, 28, 1), dtype=torch.uint8)
+    trainer.state, _ = trainer.train_step(trainer.state, batch)
+    trainer.state, _ = trainer.train_step(trainer.state, batch.float() / 255.0)
+    checks = []
+    for _ in range(2):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            trainer._check_retrace()
+        checks.append(printed.getvalue())
+    out["drift"] = {"size": trainer.train_step.cache_size(), "checks": checks}
+    return out
+
+
+def sharding_suite(rank, world, inputs):
+    """``sample_sharding`` on the meshes of ``eval_suite``, with the rank
+    array each mesh lays out."""
+    from vae_mdl_tpu_torch.parallel.mesh import sample_sharding
+
+    out = {}
+    for mesh_cfg in (c.MeshConfig(), c.MeshConfig(data=world // 2, sample=2),
+                     c.MeshConfig(data=1, sample=world // 2, model=2)):
+        mesh = make_mesh(mesh_cfg)
+        out[(mesh_cfg.data, mesh_cfg.sample, mesh_cfg.model)] = (
+            sample_sharding(mesh), mesh.mesh.tolist(), list(mesh.mesh_dim_names))
+    return out
+
+
 SCENARIOS = {"dp_suite": dp_suite, "ladder_suite": ladder_suite, "tp_suite": tp_suite,
              "eval_suite": eval_suite, "trainer_suite": trainer_suite,
              "elastic_save": elastic_save, "elastic_restore": elastic_restore,
-             "export_mesh": export_mesh}
+             "export_mesh": export_mesh, "mesh_window_suite": mesh_window_suite,
+             "retrace_suite": retrace_suite, "sharding_suite": sharding_suite}
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the launcher's variables a rank must not inherit: it is given its rank

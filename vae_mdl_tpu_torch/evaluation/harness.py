@@ -56,6 +56,7 @@ from vae_mdl_tpu_torch.evaluation.psis import (
 from vae_mdl_tpu_torch.models.objective import apply, log_weights
 from vae_mdl_tpu_torch.models.vae import VAE, latent_shapes, prior_for
 from vae_mdl_tpu_torch.parallel.distributed import process_count, process_index
+from vae_mdl_tpu_torch.parallel.mesh import sample_sharding
 from vae_mdl_tpu_torch.ops.math import (
     streaming_logmeanexp_finalize,
     streaming_logmeanexp_init,
@@ -135,7 +136,7 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
             f"gives tail_size={tail_size(n_samples)}. Use n_samples >= 25 or drop "
             "the diagnostic.")
     n_top = tail_size(n_samples) + 1  # M exceedances + the threshold
-    (n_data, row), (n_sample, col) = _places(mesh)
+    (n_data, row), (n_sample, col) = sample_sharding(mesh)
     # a sharded batch draws every chunk's noise at the whole batch's shape,
     # so its stream does not depend on the mesh
     draw_whole = n_data * n_sample > 1
@@ -208,16 +209,6 @@ def make_batch_evaluator(model, cfg: ExperimentConfig, n_samples: int = 5000,
             return tuple(out) if len(out) > 1 else out[0]
 
     return batch_llh
-
-
-def _places(mesh) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """((size, this rank's coordinate) on ``data``, the same on ``sample``):
-    (1, 0) for a dimension the mesh lacks, or where there is no mesh."""
-    if mesh is None:
-        return (1, 0), (1, 0)
-    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
-    return tuple((mesh.size(names.index(name)), coord[names.index(name)])
-                 if name in names else (1, 0) for name in ("data", "sample"))
 
 
 def _batch_seed(seed: int, index: int) -> int:

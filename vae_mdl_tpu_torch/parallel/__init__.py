@@ -3,6 +3,7 @@ from vae_mdl_tpu_torch.parallel.mesh import (
     make_mesh,
     n_slices,
     replicated,
+    sample_sharding,
     shard_batch,
     shard_state,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "n_slices",
     "batch_sharding",
     "replicated",
+    "sample_sharding",
     "shard_batch",
     "shard_state",
     "make_tp_mesh",

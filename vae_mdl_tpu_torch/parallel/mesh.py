@@ -18,10 +18,11 @@ names ``("data", "sample")``, or ``("data", "sample", "model")`` where
   the JAX package's DCN slice), so ``sample`` and ``model`` collectives
   stay inside a host and only the gradient reduction crosses hosts.
 
-``batch_sharding`` and ``replicated`` name what the JAX package's
-shardings of those names mean here: this rank's place among the batch
-shards, and the process groups over which the replicas of one parameter
-shard are averaged.
+``batch_sharding``, ``sample_sharding`` and ``replicated`` name what the
+JAX package's shardings of those names mean here: this rank's place among
+the batch shards, its block of an evaluation's ``[k, B, ...]`` tensor, and
+the process groups over which the replicas of one parameter shard are
+averaged.
 """
 from __future__ import annotations
 
@@ -134,6 +135,19 @@ def batch_sharding(mesh: DeviceMesh) -> Tuple[int, int]:
         index = index * mesh.size(dim) + coord[dim]
         count *= mesh.size(dim)
     return index, count
+
+
+def sample_sharding(mesh: Optional[DeviceMesh]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The layout of a ``[k, B, ...]`` evaluation tensor, the JAX package's
+    ``NamedSharding(mesh, P("sample", "data"))``: ``((n_data, row), (n_sample,
+    col))``, this rank's block being row ``row`` of ``n_data`` along the
+    batch and column ``col`` of ``n_sample`` along the samples; ``(1, 0)``
+    for a dimension the mesh lacks, or where there is no mesh."""
+    if mesh is None:
+        return (1, 0), (1, 0)
+    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
+    return tuple((mesh.size(names.index(name)), coord[names.index(name)])
+                 if name in names else (1, 0) for name in ("data", "sample"))
 
 
 def replicated(mesh: DeviceMesh) -> Tuple[dist.ProcessGroup, ...]:

@@ -24,18 +24,27 @@ a card, as the single-device step does) and differentiates its loss; then:
   (zero gradients keep zero moments), so the move is exact: strip the old
   pad, pad for the new count, take this rank's slice.
 
+Each step is a window body (``shard_map_step_body``, ``zero1_step_body``:
+the step's generators and beta are its arguments) run by a
+``train.capture.CapturedStep``, the counterpart of ``jax.jit(shard_map(...))``:
+on the card over NCCL one CUDA graph a key, its collectives inside; over
+gloo, on the CPU and for a call that injects noise, the same body eagerly
+(the rule: ``train.capture.captures``). ``train.steps``'
+``make_multi_train_step(mesh=)`` and ``make_device_data_train_step(mesh=)``
+run ``shard_map_step_body`` n times in one window.
+
 The batch a step takes is this rank's rows (``parallel.mesh.shard_batch``);
 injected noise (``eps``, ``u``) is the whole batch's, and each rank takes
 its rows of it. Each rank's "sample", "binarize" and "flip" generators fold
-in its batch shard (``TrainState.next_rngs(fold=)``), the counterpart of
-``fold_in(key, axis_index)``. The flat order is ``state.params``' order with
-the port's tensor layouts (``utils.convert.zero1_opt_state_from_flax`` maps
-the JAX package's ``ravel_pytree`` order).
+in its batch shard (``mesh_streams``), the counterpart of ``fold_in(key,
+axis_index)``. The flat order is ``state.params``' order with the port's
+tensor layouts (``utils.convert.zero1_opt_state_from_flax`` maps the JAX
+package's ``ravel_pytree`` order).
 """
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,10 +53,11 @@ from torch.distributed.device_mesh import DeviceMesh
 from vae_mdl_tpu_torch.config import ExperimentConfig
 from vae_mdl_tpu_torch.models.objective import training_loss_fn
 from vae_mdl_tpu_torch.models.vae import prior_for
-from vae_mdl_tpu_torch.parallel.mesh import batch_sharding, mean_over_replicas
-from vae_mdl_tpu_torch.train.capture import pack_metrics
+from vae_mdl_tpu_torch.parallel.mesh import batch_sharding, mean_over_replicas, replicated
+from vae_mdl_tpu_torch.train.capture import CapturedStep, pack_metrics
 from vae_mdl_tpu_torch.train.state import GradientTransformation, Params, TrainState
 from vae_mdl_tpu_torch.train.steps import (
+    TRAIN_STREAMS,
     _scalarize,
     apply_update,
     clip_scale,
@@ -55,6 +65,7 @@ from vae_mdl_tpu_torch.train.steps import (
     ema_step,
     preprocess_train,
     tensor_parallel_clip,
+    train_streams,
 )
 
 # the one key of a ZeRO-1 optimizer state's parameter dicts: the flat slice
@@ -72,18 +83,39 @@ def _rows(noise, rows: slice):
 
 
 def _local_grads(model, cfg: ExperimentConfig, state: TrainState, batch: torch.Tensor,
-                 eps, u, index: int):
+                 rngs: Dict[str, torch.Generator], beta, eps, u, index: int):
     """This rank's loss, scalar metrics and gradients (in ``state.params``
-    order) on its rows ``batch``, shard ``index``."""
-    rngs = state.next_rngs("sample", "binarize", "flip", device=batch.device, fold=index)
+    order) on its rows ``batch``, shard ``index``, with the step's
+    generators ``rngs`` (folded with ``index``) and ``beta``."""
     rows = slice(index * batch.shape[0], (index + 1) * batch.shape[0])
     x = preprocess_train(cfg, batch, rngs, None if u is None else u[rows])
     loss_fn = training_loss_fn(model, cfg, prior_for(cfg.model, x.device), x,
-                               cfg.model.n_samples, rngs["sample"],
-                               effective_beta(cfg, state.step), eps=_rows(eps, rows))
+                               cfg.model.n_samples, rngs["sample"], beta, eps=_rows(eps, rows))
     loss, metrics = loss_fn(state.params)
     grads = torch.autograd.grad(loss, list(state.params.values()))
     return loss.detach(), _scalarize(metrics), grads
+
+
+def mesh_streams(mesh: DeviceMesh, unfolded: Sequence[str] = ()) -> Dict[str, Optional[int]]:
+    """``{stream: fold}`` of a mesh step: the train streams fold in this
+    rank's batch shard, the counterpart of ``fold_in(key, axis_index)``;
+    the ``unfolded`` ones (the device-data step's "device_batch") draw the
+    same on every rank."""
+    index, _ = batch_sharding(mesh)
+    return {**{name: index for name in TRAIN_STREAMS}, **{name: None for name in unfolded}}
+
+
+def captured_mesh_step(cfg: ExperimentConfig, window: Callable, n_steps: int,
+                       mesh: DeviceMesh, groups=None, unfolded: Sequence[str] = ()) -> CapturedStep:
+    """A mesh step's ``window`` as a ``train.capture.CapturedStep``: its
+    streams folded by ``mesh_streams``, its collectives over ``groups``
+    (by default the groups of ``parallel.mesh.replicated``)."""
+    return CapturedStep(window, n_steps, TRAIN_STREAMS + tuple(unfolded),
+                        train_streams(cfg) + tuple(unfolded),
+                        beta_of=lambda step: effective_beta(cfg, step),
+                        tensor_betas=cfg.train.beta_warmup_steps > 0,
+                        fold=mesh_streams(mesh, unfolded),
+                        groups=replicated(mesh) if groups is None else groups)
 
 
 def _unflatten(flat: torch.Tensor, params: Params) -> Params:
@@ -91,21 +123,17 @@ def _unflatten(flat: torch.Tensor, params: Params) -> Params:
     return {name: g.view_as(p) for (name, p), g in zip(params.items(), flat.split(sizes))}
 
 
-def make_shard_map_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
-                              mesh: DeviceMesh) -> Callable:
-    """``(state, this rank's uint8 rows[, eps, u]) -> (state, metrics)``,
-    the state updated in place and equal on every rank.
-
-    The batch shards over every mesh dimension but ``model`` (flattened, as
-    the JAX step shards over all its axes; the ``model`` ranks of a state in
-    the tensor-parallel layout, ``parallel.tensor.shard_state_tp``, share
-    rows). A tensor-parallel state's global gradient norm sums its channel
-    slices over the ``model`` group, and the clip is applied with it here.
-    """
+def shard_map_step_body(model, cfg: ExperimentConfig, tx: GradientTransformation,
+                        mesh: DeviceMesh) -> Callable:
+    """``body(state, this rank's rows, rngs, beta, eps=None, u=None) ->
+    metrics``: one data-parallel update of ``state`` in place, the window
+    body of ``make_shard_map_train_step`` (``train.steps.train_step_body``'s
+    counterpart under a mesh). It draws from the generators it is given
+    and reads nothing back from the device."""
     index, _ = batch_sharding(mesh)
 
-    def step(state: TrainState, batch: torch.Tensor, eps=None, u=None):
-        loss, metrics, grads = _local_grads(model, cfg, state, batch, eps, u, index)
+    def body(state: TrainState, batch: torch.Tensor, rngs, beta, eps=None, u=None):
+        loss, metrics, grads = _local_grads(model, cfg, state, batch, rngs, beta, eps, u, index)
         packed, unpack = pack_metrics({**metrics, "loss": loss})
         n = sum(g.numel() for g in grads)
         buf = torch.cat([g.reshape(-1) for g in grads] + [packed.to(grads[0].dtype)])
@@ -122,9 +150,30 @@ def make_shard_map_train_step(model, cfg: ExperimentConfig, tx: GradientTransfor
         state.step += 1
         metrics.update(stats)
         metrics["loss"] = loss
-        return state, metrics
+        return metrics
 
-    return step
+    return body
+
+
+def make_shard_map_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
+                              mesh: DeviceMesh) -> Callable:
+    """``(state, this rank's uint8 rows[, eps, u]) -> (state, metrics)``,
+    the state updated in place and equal on every rank; a
+    ``train.capture.CapturedStep`` of ``shard_map_step_body``: on the card
+    over NCCL one CUDA graph a key, its all-reduce inside, else eagerly.
+
+    The batch shards over every mesh dimension but ``model`` (flattened, as
+    the JAX step shards over all its axes; the ``model`` ranks of a state in
+    the tensor-parallel layout, ``parallel.tensor.shard_state_tp``, share
+    rows). A tensor-parallel state's global gradient norm sums its channel
+    slices over the ``model`` group, and the clip is applied with it here.
+    """
+    body = shard_map_step_body(model, cfg, tx, mesh)
+
+    def window(state, batch, rngs, betas, eps=None, u=None):
+        return body(state, batch, rngs[0], betas[0], eps, u)
+
+    return captured_mesh_step(cfg, window, 1, mesh)
 
 
 # --- ZeRO-1: the optimizer state sharded over the ranks -----------------------
@@ -176,20 +225,18 @@ def zero1_opt_state(tx: GradientTransformation, params: Params, mesh: DeviceMesh
     return tx.init({FLAT: flat[rank * shard:(rank + 1) * shard].clone()})
 
 
-def make_zero1_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
-                          mesh: DeviceMesh) -> Callable:
-    """``(state with zero1_opt_state, this rank's rows[, eps, u]) ->
-    (state, metrics)``: local gradients -> flatten -> reduce-scatter (this
-    rank's slice of the mean) -> the optimizer on the slice -> all-gather of
-    the updated slices -> the parameters, equal on every rank. The moments
-    never exist whole on one rank."""
+def zero1_step_body(model, cfg: ExperimentConfig, tx: GradientTransformation,
+                    mesh: DeviceMesh) -> Callable:
+    """``body(state with zero1_opt_state, this rank's rows, rngs, beta,
+    eps=None, u=None) -> metrics``: one ZeRO-1 update of ``state`` in
+    place, the window body of ``make_zero1_train_step``."""
     _check_zero1_mesh(mesh)
     index, _ = batch_sharding(mesh)
     want_gnorm = cfg.train.grad_skip_threshold > 0 or cfg.train.grad_clip_norm > 0
 
-    def step(state: TrainState, batch: torch.Tensor, eps=None, u=None):
+    def body(state: TrainState, batch: torch.Tensor, rngs, beta, eps=None, u=None):
         world, rank = _world()
-        loss, metrics, grads = _local_grads(model, cfg, state, batch, eps, u, index)
+        loss, metrics, grads = _local_grads(model, cfg, state, batch, rngs, beta, eps, u, index)
         n_pad = _padded_flat_size(state.params, world)
         shard = n_pad // world
         g_mine = torch.empty(shard, dtype=grads[0].dtype, device=grads[0].device)
@@ -227,9 +274,26 @@ def make_zero1_train_step(model, cfg: ExperimentConfig, tx: GradientTransformati
         state.step += 1
         metrics.update(stats)
         metrics["loss"] = loss
-        return state, metrics
+        return metrics
 
-    return step
+    return body
+
+
+def make_zero1_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation,
+                          mesh: DeviceMesh) -> Callable:
+    """``(state with zero1_opt_state, this rank's rows[, eps, u]) ->
+    (state, metrics)``: local gradients -> flatten -> reduce-scatter (this
+    rank's slice of the mean) -> the optimizer on the slice -> all-gather of
+    the updated slices -> the parameters, equal on every rank. The moments
+    never exist whole on one rank. A ``train.capture.CapturedStep`` of
+    ``zero1_step_body``: on the card over NCCL one CUDA graph a key, its
+    three collectives inside, else eagerly."""
+    body = zero1_step_body(model, cfg, tx, mesh)
+
+    def window(state, batch, rngs, betas, eps=None, u=None):
+        return body(state, batch, rngs[0], betas[0], eps, u)
+
+    return captured_mesh_step(cfg, window, 1, mesh, (dist.group.WORLD,))
 
 
 # --- Elastic resume: ZeRO-1 states across rank counts -------------------------

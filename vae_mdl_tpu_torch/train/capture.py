@@ -1,30 +1,55 @@
 """Train and eval steps captured as CUDA graphs: the counterpart of the JAX
 package's ``jax.jit`` of a step and ``lax.scan`` of n steps in one program
 (``vae_mdl_tpu/train/steps.py`` ``make_train_step``,
-``make_multi_train_step``, ``make_device_data_train_step``).
+``make_multi_train_step``, ``make_device_data_train_step``), and of
+``jax.jit(shard_map(...))`` for the mesh steps
+(``vae_mdl_tpu/parallel/spmd.py``).
 
 A ``CapturedStep`` holds a step's window, ``window(state, x, rngs, betas,
 **noise) -> metrics``: one or ``n_steps`` updates of ``state`` (or, for the
 eval step, none), each with its own ``{stream: generator}`` and beta. It is
-the one body both paths run:
+the one body both paths run, and which path runs is decided by rule
+(``captures``), never by a failure:
 
 - eagerly, with fresh generators seeded for each step of the window
   (``train.state.stream_generators``) and each step's beta: for CPU
   tensors (the tests), for a call that injects noise (``eps=``, ``u=``: the
-  hooks that hold the port to JAX), and for a state in the tensor-parallel
-  layout, whose collectives stay eager;
-- for a CUDA tensor, as one ``torch.cuda.CUDAGraph`` a key, the key being
+  hooks that hold the port to JAX), and for a step whose collectives run
+  over a group without NCCL for the card's tensors (gloo: it cannot be
+  captured);
+- for a CUDA tensor whose step has no collectives, or whose every process
+  group carries the card's tensors over NCCL (the mesh steps of
+  ``parallel/spmd.py``, a state in the tensor-parallel layout), as one
+  ``torch.cuda.CUDAGraph`` a key, collectives included, the key being
   the input's shape, dtype and device and ``n_steps``. At a key's first call
   the window runs once on a side stream to warm up (every kernel built and
-  loaded, cuDNN's and cuBLAS's handles made, each kernel's residency asked),
-  the parameters it wrote are put back, and the window is captured once
-  into the step function's own memory pool. Every call then copies its input
-  into the graph's static input buffer, seeds the graph's generators for the
-  state's step and writes each step's beta, and replays: one launch for the
-  whole window from the host, beside two small fills a generator (the
-  graph reads each generator's seed and offset from device memory) and a
-  fill a beta. A failed capture raises; nothing falls back to the eager
-  body.
+  loaded, cuDNN's and cuBLAS's handles made, each kernel's residency asked,
+  each group's NCCL communicator made by its first collective, which a
+  capture cannot do), the parameters it wrote are put back, and the window
+  is captured once into the step function's own memory pool. Every call
+  then copies its input into the graph's static input buffer, seeds the
+  graph's generators for the state's step and writes each step's beta, and
+  replays: one launch for the whole window from the host, beside two small
+  fills a generator (the graph reads each generator's seed and offset from
+  device memory) and a fill a beta. A failed capture raises; nothing falls
+  back to the eager body.
+
+The rule depends on nothing rank-local: the device type and the groups'
+backend are the same on every rank, and so is the key, since a mesh step
+takes equal rows on every rank (``parallel.mesh.shard_batch`` refuses
+uneven ones). So every rank captures the same collectives at the same call,
+which NCCL needs.
+
+NCCL under capture (torch 2.11's ``ProcessGroupNCCL``, NCCL 2.28.9 on the
+card). The group allows a capture from NCCL 2.9.6 on and raises below it. A
+collective runs on the group's internal NCCL stream, which waits on an event
+recorded on the current stream and is waited on when the collective
+returns: under capture that fork and join put the NCCL stream's kernels
+into the graph. The capture is thread-local, so the group's watchdog
+thread, which queries its work's events meanwhile, does not void it. No
+environment variable is set (every ``TORCH_NCCL_*`` at its default). The
+tensor-parallel layout's backward collectives run on the autograd engine's
+thread, on the capturing stream, and are captured with the rest.
 
 What a graph reads and writes. The parameters are the model's own tensors
 (``apply_update`` writes them in place), read and written at the addresses
@@ -63,8 +88,10 @@ import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from vae_mdl_tpu_torch.train.state import (
+    Fold,
     TrainState,
     seed_streams,
     stream_generators,
@@ -158,6 +185,30 @@ def _add_counts(delta: dict) -> None:
             setattr(module, name, value + moved)
 
 
+# -- the rule -------------------------------------------------------------------
+
+
+def cuda_backend(backend: str) -> str:
+    """The backend that carries CUDA tensors in a process group's backend
+    string: ``"nccl"`` of ``"cpu:gloo,cuda:nccl"``, the string itself where
+    it names one backend for every device."""
+    for part in backend.split(","):
+        device, sep, name = part.partition(":")
+        if sep and device.strip() == "cuda":
+            return name.strip()
+    return backend if ":" not in backend else ""
+
+
+def captures(device_type: str, backend: Optional[str]) -> bool:
+    """Whether a step on tensors of ``device_type`` whose collectives run
+    over a group of ``backend`` (None: a step without collectives) is one
+    CUDA graph: on the card, with no group or a group that carries the
+    card's tensors over NCCL; gloo and the CPU run the eager body."""
+    if device_type != "cuda":
+        return False
+    return backend is None or cuda_backend(str(backend)) == "nccl"
+
+
 # -- the captured step -----------------------------------------------------------
 
 
@@ -171,12 +222,16 @@ class CapturedStep:
     float (a constant of the graph); ``updates``: the window updates the
     state (a train step: it returns ``(state, metrics)`` and advances
     ``state.step`` by ``n_steps``), else it only reads the parameters and
-    the EMA copy (the eval step: it returns the metrics)."""
+    the EMA copy (the eval step: it returns the metrics); ``fold``: folded
+    into every stream's seeds, or ``{stream: fold or None}`` (a mesh step
+    folds its rank's batch shard into some streams only); ``groups``: the
+    process groups the window's collectives run over (a state in the
+    tensor-parallel layout adds its ``model`` group)."""
 
     def __init__(self, window: Callable, n_steps: int, streams: Sequence[str],
                  drawn: Sequence[str], beta_of: Optional[Callable[[int], float]] = None,
-                 tensor_betas: bool = False, fold: Optional[int] = None,
-                 updates: bool = True):
+                 tensor_betas: bool = False, fold: Fold = None,
+                 updates: bool = True, groups: Sequence = ()):
         self.window = window
         self.n_steps = n_steps
         self.streams = tuple(streams)
@@ -185,6 +240,7 @@ class CapturedStep:
         self.tensor_betas = tensor_betas
         self.fold = fold
         self.updates = updates
+        self.groups = tuple(groups)
         # the trees the graph keeps copies of (the parameters it reads in place)
         self.trees = ("opt_state", "ema_params") if updates else ("ema_params",)
         self._keys: Dict[tuple, Optional["_Graph"]] = {}
@@ -215,12 +271,20 @@ class CapturedStep:
         metrics = self.window(state, x, rngs, self.betas(state.step, x.device), **noise)
         return (state, metrics) if self.updates else metrics
 
+    def captures(self, state: TrainState, x: torch.Tensor) -> bool:
+        """The rule (``captures``) for this call: every group the window's
+        collectives run over, on ``x``'s device."""
+        groups = self.groups + ((state.tp_layout.group,) if state.tp_layout is not None else ())
+        if not groups:
+            return captures(x.device.type, None)
+        return all(captures(x.device.type, dist.get_backend(group)) for group in groups)
+
     def __call__(self, state: TrainState, x: torch.Tensor, **noise):
         noise = {name: value for name, value in noise.items() if value is not None}
-        if noise or state.tp_layout is not None:
+        if noise:
             return self.eager(state, x, **noise)
         key = self.key(x)
-        if x.device.type != "cuda":
+        if not self.captures(state, x):
             self._keys.setdefault(key, None)
             return self.eager(state, x)
         graph = self._keys.get(key)

@@ -35,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -71,18 +71,24 @@ def _stream_seed(seed: int, step: int, name: str, fold: Optional[int] = None) ->
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
+Fold = Union[None, int, Mapping[str, Optional[int]]]
+
+
 def seed_streams(generators: Dict[str, torch.Generator], seed: int, step: int,
-                 fold: Optional[int] = None) -> Dict[str, torch.Generator]:
+                 fold: Fold = None) -> Dict[str, torch.Generator]:
     """Seed each of ``{stream name: generator}`` for ``step`` from (seed,
     step, crc32 of the name[, fold]), in place; a generator then draws
-    what a fresh one of ``stream_generators`` draws."""
+    what a fresh one of ``stream_generators`` draws. ``fold``: one for
+    every stream, or ``{stream name: fold or None}`` (a stream it does not
+    name is not folded)."""
     for name, gen in generators.items():
-        gen.manual_seed(_stream_seed(seed, step, name, fold))
+        own = fold.get(name) if isinstance(fold, Mapping) else fold
+        gen.manual_seed(_stream_seed(seed, step, name, own))
     return generators
 
 
 def stream_generators(seed: int, step: int, streams: Sequence[str], device=None,
-                      fold: Optional[int] = None) -> Dict[str, torch.Generator]:
+                      fold: Fold = None) -> Dict[str, torch.Generator]:
     """One generator on ``device`` per stream, seeded for ``step``."""
     return seed_streams({name: torch.Generator(device=device) for name in streams},
                         seed, step, fold)

@@ -20,10 +20,11 @@ n steps, is one CUDA graph, captured at the first call of each input shape
 and replayed after, the counterpart of the JAX factories' ``jax.jit`` and
 ``lax.scan``; on the CPU, and for a call that injects noise, the same body
 runs eagerly. A step updates the state in place and returns it. Over
-several ranks ``mesh=`` takes the data-parallel step of
-``parallel/spmd.py`` in its place, eagerly; a state in the tensor-parallel
-layout (``parallel/tensor.py``) trains through the plain step's body,
-eagerly, its gradient norm summed over the ``model`` group.
+several ranks ``mesh=`` runs the data-parallel body of
+``parallel/spmd.py`` in the window, its collectives inside the graph over
+NCCL (eagerly over gloo: ``train.capture.captures``); a state in the
+tensor-parallel layout (``parallel/tensor.py``) trains through the same
+bodies, its gradient norm summed over the ``model`` group.
 """
 from __future__ import annotations
 
@@ -234,6 +235,14 @@ def _captured_train_step(cfg: ExperimentConfig, window: Callable, n_steps: int,
                         tensor_betas=cfg.train.beta_warmup_steps > 0)
 
 
+def _spmd():
+    """``parallel/spmd.py``, the mesh steps' bodies, imported at call time:
+    it imports this module."""
+    from vae_mdl_tpu_torch.parallel import spmd
+
+    return spmd
+
+
 def make_train_step(model, cfg: ExperimentConfig, tx: GradientTransformation) -> Callable:
     """``(state, uint8 batch[B, H, W, C], eps=None, u=None) -> (state,
     metrics)``: one update of ``state`` (in place; ``train_step_body``). On
@@ -254,24 +263,12 @@ def make_multi_train_step(model, cfg: ExperimentConfig, tx: GradientTransformati
     """``(state, batches[n, B, ...]) -> (state, metrics of the window)``:
     ``n_steps`` updates per call, equal to as many single steps; on the card
     one CUDA graph of the whole window, the counterpart of the JAX step's
-    ``lax.scan`` (under a ``mesh``, a Python loop of
-    ``parallel.spmd.make_shard_map_train_step`` on this rank's rows)."""
-    if mesh is not None:
-        from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
-
-        step = make_shard_map_train_step(model, cfg, tx, mesh)
-
-        def multi(state: TrainState, batches: torch.Tensor):
-            if batches.shape[0] != n_steps:
-                raise ValueError(f"expected {n_steps} batches, got {batches.shape[0]}")
-            window = []
-            for batch in batches:
-                state, metrics = step(state, batch)
-                window.append(metrics)
-            return state, reduce_scan_metrics(window)
-
-        return multi
-    body = train_step_body(model, cfg, tx)
+    ``lax.scan``. Under a ``mesh`` the window runs
+    ``parallel.spmd.shard_map_step_body`` on this rank's rows
+    (``batches[n, B / shards, ...]``), its collectives inside the graph
+    over NCCL, the counterpart of the JAX scan under the mesh."""
+    body = (train_step_body(model, cfg, tx) if mesh is None
+            else _spmd().shard_map_step_body(model, cfg, tx, mesh))
 
     def window(state, batches, rngs, betas):
         if batches.shape[0] != n_steps:
@@ -279,6 +276,8 @@ def make_multi_train_step(model, cfg: ExperimentConfig, tx: GradientTransformati
         return reduce_scan_metrics([body(state, batch, r, beta)
                                     for batch, r, beta in zip(batches, rngs, betas)])
 
+    if mesh is not None:
+        return _spmd().captured_mesh_step(cfg, window, n_steps, mesh)
     return _captured_train_step(cfg, window, n_steps)
 
 
@@ -288,38 +287,31 @@ def make_device_data_train_step(model, cfg: ExperimentConfig, tx: GradientTransf
     for a dataset that lives on the device: each step gathers its batch by
     indices drawn there, i.i.d. with replacement, from the "device_batch"
     stream; on the card one CUDA graph of the window. Under a ``mesh`` every
-    rank holds the whole dataset, draws the same indices and gathers its
-    rows of them for the data-parallel step
-    (``parallel.spmd.make_shard_map_train_step``), eagerly."""
+    rank holds the whole dataset, draws the same indices (the "device_batch"
+    stream is not folded) and gathers its rows of them for
+    ``parallel.spmd.shard_map_step_body``, in one graph over NCCL."""
     batch_size = cfg.data.batch_size
-    if mesh is not None:
+    rows = slice(0, batch_size)
+    if mesh is None:
+        body = train_step_body(model, cfg, tx)
+    else:
         from vae_mdl_tpu_torch.parallel.mesh import batch_sharding
-        from vae_mdl_tpu_torch.parallel.spmd import make_shard_map_train_step
 
-        step = make_shard_map_train_step(model, cfg, tx, mesh)
+        body = _spmd().shard_map_step_body(model, cfg, tx, mesh)
         index, count = batch_sharding(mesh)
         rows = slice(index * batch_size // count, (index + 1) * batch_size // count)
-
-        def multi(state: TrainState, data: torch.Tensor):
-            window = []
-            for _ in range(n_steps):
-                gen = state.next_rngs("device_batch", device=data.device)["device_batch"]
-                idx = torch.randint(0, n_data, (batch_size,), generator=gen, device=data.device)
-                state, metrics = step(state, data[idx[rows]])
-                window.append(metrics)
-            return state, reduce_scan_metrics(window)
-
-        return multi
-    body = train_step_body(model, cfg, tx)
 
     def window(state, data, rngs, betas):
         metrics = []
         for r, beta in zip(rngs, betas):
             idx = torch.randint(0, n_data, (batch_size,), generator=r["device_batch"],
                                 device=data.device)
-            metrics.append(body(state, data[idx], r, beta))
+            metrics.append(body(state, data[idx[rows]], r, beta))
         return reduce_scan_metrics(metrics)
 
+    if mesh is not None:
+        return _spmd().captured_mesh_step(cfg, window, n_steps, mesh,
+                                          unfolded=("device_batch",))
     return _captured_train_step(cfg, window, n_steps, TRAIN_STREAMS + ("device_batch",),
                                 ("device_batch",))
 

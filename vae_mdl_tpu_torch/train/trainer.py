@@ -25,7 +25,8 @@ ranks, so every rank keeps the same best validation loss, and only rank 0
 logs and writes ``config.json``.
 
 On the card the train and eval steps are CUDA graphs, one a key
-(``train/capture.py``); the retrace guard, the JAX trainer's
+(``train/capture.py``), the mesh steps' collectives inside them over NCCL;
+the retrace guard, the JAX trainer's
 ``_check_retrace``, reads each step's key cache at every eval interval and
 warns once a function when it holds more than one capture.
 """
@@ -170,9 +171,9 @@ class Trainer:
         between calls (shape, dtype, device) makes the step capture a new
         graph instead of replaying its one, and nothing crashes. The steps
         take ``(state, batch)`` with fixed shapes, so one capture is
-        expected; checked at every eval interval. A step without a key cache
-        (the eager mesh steps) is skipped, and the others are still
-        checked."""
+        expected; checked at every eval interval, the mesh steps' as the
+        single-device steps'. A step without a key cache (a caller's
+        wrapper) is skipped, and the others are still checked."""
         for name, fn in (("train_step", self.train_step), ("eval_step", self.eval_step)):
             cache_size = getattr(fn, "cache_size", None)
             if cache_size is None:
