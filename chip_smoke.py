@@ -330,6 +330,37 @@ and nothing falls back to a plain version.
    ``mesh capture:`` JSON line; its launches go into the kernels line as the
    ``mesh capture`` path. Phase 19 alone: ``python3 -c "import chip_smoke
    as c; smi = c.phase_device(); c.phase_build(); c.phase_mesh_capture(smi)"``.
+20. the eval as one program (``evaluation/harness.py`` ``BatchEvaluator``:
+   on the card a batch's whole evaluation, every k-chunk included, is one
+   CUDA graph a model and key, so every evaluation above already ran
+   captured), under cuDNN's deterministic flags with TF32 off: (a) for each
+   of ``EVAL_CAPTURE_CASES`` (model05 f32 and bf16, model03 bf16, model01,
+   ladder_svhn; full width, seeded uint8 images of the bench's eval batch,
+   5000 samples, the ladder 500, k-chunks of 100, with the k-hat top set
+   and the curve), the captured batch against the eager loop bit for bit
+   (llh, top set, curve) with the caller's generator left at the same
+   offset, at two seeds (the capturing call and two replays); the peak
+   memory of the eager call and of the capturing call and
+   what the graph's pool holds after it; the capture's seconds; imgs/s in
+   turns (``EVAL_AB``: eager, captured, captured, eager); one traced batch
+   of each (device-busy ms, idle share, host launch calls, device kernels);
+   a second ``evaluate_llh`` that captures nothing; with every count set to
+   0 before (a) and read after it, the MoDL forward on the tile path and
+   the DL forward; (b) the EMA copy through ``params=`` and the model's own
+   weights after a captured, an eager and a captured train step, captured
+   equal to eager (model05 f32, 200 samples); (c) model05 with
+   ``head_pad=64``: phase 10b's train step check and a 200-IS eval through
+   the kernels against the plain version, every MoDL launch by memory path
+   (the 50 of 64 channels are no dense tensor: the direct path); (d)
+   ``PolyphaseConvTranspose``'s function against ``F.conv_transpose2d`` at
+   model05's three decoder shapes, k = 5 and 100 at batch 128, f32 and bf16:
+   the largest difference, forward and forward+backward ms of both in
+   turns. ``make_batch_evaluator(mesh=)`` at ``sample = 2`` over NCCL needs
+   two cards: at one it prints that it was not measured. It prints one
+   ``eval capture:`` JSON line; its launches go into the kernels line as
+   the ``eval capture`` path. Phase 20 alone: ``python3 -c "import
+   chip_smoke as c; smi = c.phase_device(); c.phase_build();
+   c.phase_eval_capture(smi)"``.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -378,6 +409,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import glob
 import io
 import json
@@ -394,7 +426,12 @@ import torch
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
 from vae_mdl_tpu_torch.data.preprocess import binarize
-from vae_mdl_tpu_torch.evaluation.harness import _batch_seed, evaluate_llh, make_batch_evaluator
+from vae_mdl_tpu_torch.evaluation.harness import (
+    _batch_seed,
+    clear_cache,
+    evaluate_llh,
+    make_batch_evaluator,
+)
 from vae_mdl_tpu_torch.models.objective import compute_loss, training_loss_fn
 from vae_mdl_tpu_torch.models.vae import build_model, latent_shapes, prior_for
 from vae_mdl_tpu_torch.cli.run import main as cli_main
@@ -407,7 +444,12 @@ from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
 from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
 from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
-from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer, tree_map
+from vae_mdl_tpu_torch.train.state import (
+    create_train_state,
+    eval_params,
+    make_optimizer,
+    tree_map,
+)
 from vae_mdl_tpu_torch.train.steps import (
     make_device_data_train_step,
     make_multi_train_step,
@@ -1820,15 +1862,16 @@ def phase_bound(name: str) -> None:
         raise AssertionError(f"{name} bound: kernel launched {n_k} times, plain path {n_p}")
 
 
-def phase_train_step_check(name: str, compute_dtype: str = None) -> None:
+def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> None:
     """One train step of the model in its config (float32; biladder_celeba
     bf16) or in ``compute_dtype``, through the kernels and through the plain
     version, from one state, batch and noise: the loss and each parameter's
     gradient, then the whole step. A ladder's rezero gates are opened first
     (``open_gates``), so that every leaf has a gradient to compare, and its
     train step does not flip the images (biladder_celeba's experiment
-    would), so that the step sees the batch the loss saw."""
-    base = MODELS[name]
+    would), so that the step sees the batch the loss saw. ``base`` stands
+    in for the zoo's config (phase 20: model05 with ``head_pad``)."""
+    base = MODELS[name] if base is None else base
     if compute_dtype is not None:
         base = dataclasses.replace(base, compute_dtype=compute_dtype)
     grad_rtol = GRAD_RTOL_BF16 if base.compute_dtype == "bfloat16" else GRAD_RTOL
@@ -2297,8 +2340,12 @@ def _phase_trainer(root: str, smi: str) -> dict:
 
     # (f) the test evaluation with its diagnostics; then fit goes on
     live = {n: p.detach().clone() for n, p in state.params.items()}
+    torch.cuda.reset_peak_memory_stats()
     (llh, per_image, metrics), seconds = cuda_seconds(
         lambda: trainer.test(khat=True, k_curve=True))
+    say(f"trainer (f): test() captured its batch beside the train step's graphs: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved after it")
     n_test = len(per_image)
     points = [0, len(metrics["k_curve_ks"]) // 5, -1]
     say(f"trainer (f): test() 5000-IS on {n_test} images, the best checkpoint's EMA weights: "
@@ -3023,7 +3070,13 @@ def _phase_parallel(root: str, smi: str) -> dict:
     by_path["model05 sharded eval"] = counts
     report["sharded_eval_one_rank"] = {"llh": llh, "imgs_per_sec": PARALLEL_EVAL_IMAGES / seconds}
 
-    # (b) two processes on the one card over gloo on CUDA tensors
+    # (b) two processes on the one card over gloo on CUDA tensors; they share
+    # it, so this process's graphs (the evaluation's holds a batch's peak) go
+    # first
+    clear_cache(model)
+    del steps, states
+    gc.collect()
+    torch.cuda.empty_cache()
     report["two_process_backend"] = "gloo (NCCL takes one rank a card)"
     say("parallel (b): two ranks on card 0 over gloo, which takes CUDA tensors; NCCL refuses "
         "two ranks on one device")
@@ -4257,10 +4310,285 @@ def phase_mesh_capture(smi: str) -> dict:
     say("mesh capture: " + json.dumps(report))
     return counts
 
+# -- phase 20: the eval as one program -------------------------------------------------
+
+# (label, zoo name, configs_of key, importance samples): each at full width on
+# the bench's eval batch (EVAL_BATCH), k-chunks of 100
+EVAL_CAPTURE_CASES = (
+    ("model05 f32", "model05", "f32", 5000), ("model05 bf16", "model05", "bf16", 5000),
+    # model03 in its bf16 config: 0.9 s a batch against the float32 one's 3.7
+    ("model03 bf16", "model03", "bf16", 5000), ("model01", "model01", "f32", 5000),
+    # the ladder's eager 5000-IS batch takes ~13 s (9.81 imgs/s): a tenth of
+    # the samples keeps the phase inside the run's time limit
+    ("ladder_svhn", "ladder_svhn", "f32", 500),
+)
+EVAL_K_CHUNK = 100
+EVAL_AB = ("eager", "captured", "captured", "eager")
+EVAL_PARAMS_SAMPLES = 200  # the EMA params= case: two chunks, as the card test's
+HEAD_PAD = 64
+# model05's decoder's three transposed convs: (in, out, input side)
+POLY_SHAPES = ((128, 128, 4), (128, 64, 8), (64, 32, 16))
+POLY_KS = (5, 100)
+POLY_REPS = 3  # timed calls a turn, after a warm-up call
+
+
+def _same(got, want) -> bool:
+    got, want = (got if isinstance(got, tuple) else (got,)), (
+        want if isinstance(want, tuple) else (want,))
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _stats(values) -> dict:
+    r = np.asarray(values, dtype=np.float64)
+    return {"median": float(np.median(r)), "min": float(r.min()),
+            "sd": float(r.std(ddof=1)) if r.size > 1 else 0.0}
+
+
+def eval_capture_case(label: str, name: str, which: str, n_samples: int, smi: str) -> dict:
+    """One config's 5000-IS batch (``n_samples``) with the k-hat top set and
+    the curve, eager and captured: bit-equal at two seeds (the capturing call
+    and two replays) with the caller's generator left at one offset, peak
+    memory of each, the capture's seconds, the rates in turns (EVAL_AB), one
+    traced batch of each, and a second ``evaluate_llh`` that captures
+    nothing."""
+    from vae_mdl_tpu_torch.evaluation import harness
+
+    cfg = experiment(name, model=configs_of(name, plain=False)[which])
+    n = EVAL_BATCH.get(name, BATCH)
+    host = images(n, cfg.model.image_shape)
+    batch = torch.as_tensor(host, device="cuda")
+    model = seeded_model(cfg.model)
+    evaluator = make_batch_evaluator(model, cfg, n_samples, EVAL_K_CHUNK, with_khat=True,
+                                     with_curve=True)
+
+    def run(kind: str, seed: int):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        call = evaluator.eager if kind == "eager" else evaluator
+        out, seconds = cuda_seconds(lambda: call(batch, gen))
+        return out, gen.get_offset(), seconds
+
+    def check(seed, got, want):
+        if not _same(got[0], want[0]) or got[1] != want[1]:
+            raise AssertionError(f"eval capture {label}: seed {seed}: the captured batch "
+                                 "differs from the eager loop (llh, top set, curve or the "
+                                 "generator's offset)")
+
+    # in turns (EVAL_AB: eager, captured, captured, eager), the first captured
+    # turn a replay after the capturing call, each kind once at SEED + 1 and
+    # once at SEED + 2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {("eager", SEED + 1): run("eager", SEED + 1)}
+    eager_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    eager_reserved = (torch.cuda.max_memory_reserved() - reserved) / 2**30
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = run("captured", SEED + 1)  # the warm-up, the capture and the first replay
+    first_s = time.perf_counter() - t0
+    capture_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2**30
+    check(SEED + 1, first, runs["eager", SEED + 1])
+    for kind, seed in zip(EVAL_AB[1:], (SEED + 1, SEED + 2, SEED + 2)):
+        runs[kind, seed] = run(kind, seed)
+    for seed in (SEED + 1, SEED + 2):
+        check(seed, runs["captured", seed], runs["eager", seed])
+    rates = {kind: [n / runs[kind, seed][2] for seed in (SEED + 1, SEED + 2)]
+             for kind in ("eager", "captured")}
+    want = runs["eager", SEED + 1]
+    traces = {}
+    for kind in ("eager", "captured"):
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        call = evaluator.eager if kind == "eager" else evaluator
+        wall, kernels, host_calls = trace_launches(lambda: call(batch, gen))
+        busy = sum(ms for _, ms in kernels.values())
+        traces[kind] = {"busy_ms": busy, "wall_ms": wall, "idle_share": 1.0 - busy / wall,
+                        "host_launches": host_calls,
+                        "device_kernels": sum(c for c, _ in kernels.values())}
+    sizes = (evaluator.cache_size(), harness.cache_size(model))
+    evaluate_llh(model, cfg, host, n_samples=n_samples, k_chunk=EVAL_K_CHUNK, batch_size=n,
+                 seed=SEED, khat=True, k_curve=True)
+    again = (evaluator.cache_size(), harness.cache_size(model))
+    if sizes != (1, 1) or again != (1, 1):
+        raise AssertionError(f"eval capture {label}: captures {sizes}, then {again} after a "
+                             "second evaluate_llh")
+    llh = want[0][0]
+    if not (torch.isfinite(llh).all() and llh.shape == (n,)):
+        raise AssertionError(f"eval capture {label}: llh {tuple(llh.shape)} not finite")
+    row = {"n_samples": n_samples, "batch": n, "mean_llh": float(llh.mean()),
+           "imgs_per_s": {kind: _stats(r) for kind, r in rates.items()},
+           "traced": traces,
+           "peak_gib": {"eager allocated": eager_peak, "eager reserved": eager_reserved,
+                        "capturing call allocated": capture_peak,
+                        "held by the graph (reserved)": held},
+           # the first call less a replay: the warm-up (one chunk) and the capture
+           "capture_s": first_s - float(np.median([n / r for r in rates["captured"]])),
+           "captures": again}
+    say(f"eval capture {label}, {n_samples} samples, batch {n}, k-chunks of {EVAL_K_CHUNK}: "
+        f"captured bit-equal to eager at 2 seeds, generator offsets equal; {json.dumps(row)} "
+        f"on {smi}")
+    return row
+
+
+def eval_capture_params() -> None:
+    """The Trainer's case: the EMA copy through ``params=`` and the model's
+    own parameters, each after a captured train step (which writes both in
+    place) and after an eager one (which makes new optimizer and EMA
+    tensors): each captured evaluation equal to the eager one."""
+    cfg = experiment("model05")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=0.999))
+    model = seeded_model(cfg.model)
+    state = create_train_state(model, cfg.train)
+    batch = torch.as_tensor(images(BATCH), device="cuda")
+    evaluator = make_batch_evaluator(model, cfg, EVAL_PARAMS_SAMPLES, EVAL_K_CHUNK)
+    step = make_train_step(model, cfg, make_optimizer(cfg.train))
+    for kind in ("captured", "eager", "captured"):
+        state, _ = (step if kind == "captured" else step.eager)(state, batch)
+        for what, params in (("EMA", eval_params(cfg.train, state)), ("own", None)):
+            want = evaluator.eager(batch, torch.Generator("cuda").manual_seed(SEED),
+                                   params=params)
+            got = evaluator(batch, torch.Generator("cuda").manual_seed(SEED), params=params)
+            if not _same(got, want):
+                raise AssertionError(f"eval capture params: the {what} weights after a "
+                                     f"{kind} step differ captured and eager")
+    say(f"eval capture params: model05 f32, {EVAL_PARAMS_SAMPLES} samples, batch {BATCH}: the "
+        "EMA copy (params=) and the model's own weights after a captured, an eager and a "
+        "captured train step, captured equal to eager bit for bit")
+
+
+def eval_head_pad(smi: str) -> dict:
+    """model05 with ``head_pad=64``: one train step kernel against plain
+    (phase 10b's check) and a 200-IS eval, through the kernels against the
+    plain version, with the MoDL launches by memory path."""
+    base = MODELS["model05"]
+    base = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, head_pad=HEAD_PAD))
+    reset_probe_counts()
+    phase_train_step_check("model05", base=base)
+    step_paths = (dict(mdl_kernel.launches_by_path),
+                  dict(mdl_kernel.backward_launches_by_path))
+    batch = images(BATCH)
+    reset_probe_counts()
+    got = evaluate_llh(seeded_model(base), experiment("model05", model=base), batch,
+                       n_samples=200, k_chunk=EVAL_K_CHUNK, batch_size=BATCH, seed=SEED)[1]
+    eval_paths = dict(mdl_kernel.launches_by_path)
+    plain = dataclasses.replace(base, use_pallas=False)
+    want = evaluate_llh(seeded_model(plain), experiment("model05", model=plain), batch,
+                        n_samples=200, k_chunk=EVAL_K_CHUNK, batch_size=BATCH, seed=SEED)[1]
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    out = {"train step forward": step_paths[0], "train step backward": step_paths[1],
+           "200-IS eval forward": eval_paths, "eval max rel diff": rel}
+    say(f"head_pad {HEAD_PAD}: model05's head emits {HEAD_PAD} channels, the likelihood reads "
+        f"50: MoDL launches by memory path {json.dumps(out)} on {smi}")
+    if rel > SUM_RTOL:
+        raise AssertionError("head_pad: the 200-IS eval's kernel and plain version disagree")
+    for what, paths in (("train forward", step_paths[0]), ("train backward", step_paths[1]),
+                        ("eval forward", eval_paths)):
+        if paths["direct"] < 1 or paths["tiled"]:
+            raise AssertionError(f"head_pad: the {what} took {paths}, not the direct path")
+    return out
+
+
+def eval_polyphase(smi: str) -> dict:
+    """The polyphase form against ``F.conv_transpose2d`` at model05's three
+    decoder shapes, k = 5 and 100 at batch 128, f32 and bf16, on
+    channels-last inputs as the decoder's: the largest difference, and the
+    forward and forward+backward ms of both forms in turns."""
+    import torch.nn.functional as F
+
+    from vae_mdl_tpu_torch.nn.encoders import ConvLayer, ConvSpec, polyphase_conv_transpose
+
+    out = {}
+    gen = torch.Generator().manual_seed(SEED)
+    for cin, cout, side in POLY_SHAPES:
+        layer = ConvLayer(ConvSpec(cout, 4, 2, True, "none"), cin, gen).cuda()
+        with torch.no_grad():
+            layer.bias.normal_(generator=torch.Generator("cuda").manual_seed(SEED))
+        for k in POLY_KS:
+            rows = k * BATCH
+            x = torch.randn((rows, side, side, cin), device="cuda").permute(0, 3, 1, 2)
+            g = torch.randn((rows, 2 * side, 2 * side, cout), device="cuda").permute(0, 3, 1, 2)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd, gd = x.to(dtype).requires_grad_(), g.to(dtype)
+                forms = {
+                    "conv_transpose2d": lambda: F.conv_transpose2d(
+                        xd, layer.weight.to(dtype), layer.bias.to(dtype), stride=2, padding=1),
+                    "polyphase": lambda: polyphase_conv_transpose(xd, layer.weight, layer.bias,
+                                                                  dtype),
+                }
+                with torch.no_grad():
+                    diff = float((forms["polyphase"]().float()
+                                  - forms["conv_transpose2d"]().float()).abs().max())
+
+                def backward(form):
+                    return lambda: torch.autograd.grad(
+                        form(), (xd, layer.weight, layer.bias), grad_outputs=gd)
+
+                with torch.no_grad():
+                    fwd = in_turns(forms, ("conv_transpose2d", "polyphase", "polyphase",
+                                           "conv_transpose2d"), POLY_REPS)
+                both = in_turns({name: backward(f) for name, f in forms.items()},
+                                ("conv_transpose2d", "polyphase", "polyphase",
+                                 "conv_transpose2d"), POLY_REPS)
+                key = f"{cin}->{cout} {side}x{side} k={k} {dtype_name(dtype)}"
+                out[key] = {"max_abs_diff": diff, "fwd_ms": fwd, "fwd_bwd_ms": both}
+                scale = float(forms["conv_transpose2d"]().detach().float().abs().max())
+                tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -6 * scale
+                if not diff <= tol:
+                    raise AssertionError(f"polyphase {key}: max diff {diff} > {tol}")
+            del x, g
+    say(f"polyphase: against F.conv_transpose2d, in turns: {json.dumps(out)} on {smi}")
+    return out
+
+
+def phase_eval_capture(smi: str) -> dict:
+    """Phase 20, the eval as one program; see the module docstring. -> the
+    kernel launches of its main path (every config's captured and eager
+    batches)."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_probe_counts()
+        before = launches_now()
+        rows = {}
+        for label, name, which, n_samples in EVAL_CAPTURE_CASES:
+            rows[label] = eval_capture_case(label, name, which, n_samples, smi)
+            torch.cuda.empty_cache()
+        counts = launched_since(before)
+        for kernel in ("mdl_log_prob", "dl_log_prob"):
+            if not counts.get(kernel):
+                raise AssertionError(f"eval capture: the main path launched no {kernel}")
+        if counts.get("mdl_log_prob direct"):
+            raise AssertionError(f"eval capture: MoDL forward launches off the tile path: "
+                                 f"{counts}")
+        eval_capture_params()
+        head_pad = eval_head_pad(smi)
+        polyphase = eval_polyphase(smi)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+    say("eval capture: make_batch_evaluator(mesh=) over NCCL at sample = 2: not measured "
+        f"(needs two cards; this machine has {torch.cuda.device_count()})"
+        if torch.cuda.device_count() < 2 else
+        "eval capture: make_batch_evaluator(mesh=) over NCCL at sample = 2: not run in this "
+        "phase (the script drives one card)")
+    say("eval capture: " + json.dumps({"configs": rows, "head_pad": head_pad,
+                                       "polyphase": polyphase}))
+    return counts
+
+
 def timed(label: str, fn, *args):
-    """``fn(*args)``, printing the seconds it took."""
+    """``fn(*args)``, printing the seconds it took. The phase's models are
+    collected after it, and with them their evaluation graphs' memory."""
     t0 = time.perf_counter()
     out = fn(*args)
+    gc.collect()
+    torch.cuda.empty_cache()
     say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4299,6 +4627,7 @@ def main() -> None:
     by_path.update(measure_counts)
     by_path["capture"] = timed("compiled train step", phase_capture, smi)
     by_path["mesh capture"] = timed("mesh steps as one program", phase_mesh_capture, smi)
+    by_path["eval capture"] = timed("eval as one program", phase_eval_capture, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'

@@ -9,7 +9,11 @@ version; and the training run's card pieces: ``device_prefetch`` against
 synchronous copies (each tensor's use recorded on the consumer's stream), a
 checkpoint of CUDA state restored onto the card and the CPU, and the
 streamed top log-weights on the card against the CPU's; the mesh steps
-captured over NCCL at a world of one against their eager bodies.
+captured over NCCL at a world of one against their eager bodies; the
+evaluator's batch captured against its eager loop bit for bit (a second
+``evaluate_llh``, ``params=`` after train steps); model05 with ``head_pad``
+through the kernels' direct path against the plain version; and the
+polyphase transposed conv against ``F.conv_transpose2d``.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -1257,3 +1261,178 @@ def test_mesh_steps_captured_over_nccl_equal_eager_steps_bit_for_bit(cuda, tmp_p
     finally:
         dist.destroy_process_group()
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+# -- the evaluator's batch as one program, head_pad, the polyphase form --------------
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms and float32 convolutions (no TF32),
+    as chip_smoke.py's phase 20 runs."""
+    backends = torch.backends
+    flags = (backends.cudnn.deterministic, backends.cudnn.benchmark, backends.cudnn.allow_tf32,
+             backends.cuda.matmul.allow_tf32)
+    backends.cudnn.deterministic, backends.cudnn.benchmark = True, False
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+    yield
+    (backends.cudnn.deterministic, backends.cudnn.benchmark, backends.cudnn.allow_tf32,
+     backends.cuda.matmul.allow_tf32) = flags
+
+
+def _eval_inputs(name, n, device):
+    cfg = experiment(name)
+    model = build_model(cfg.model, torch.Generator().manual_seed(0))
+    images = np.random.default_rng(0).integers(0, 256, (n,) + tuple(cfg.model.image_shape),
+                                               dtype=np.uint8)
+    return model, cfg, images, torch.as_tensor(images, device=device)
+
+
+@pytest.mark.parametrize("name", ["model01", "model05", "model03", "ladder_svhn"])
+def test_captured_evaluation_equals_the_eager_loop_bit_for_bit(cuda, deterministic, name):
+    """On the card a batch's evaluation is one CUDA graph (``BatchEvaluator``):
+    the capturing call and a replay equal the eager loop bit for bit (llh, the
+    top set, the curve), each leaves the caller's generator at the eager
+    loop's offset, ``generator=None`` draws from the default generator as the
+    eager loop does, and the likelihood kernel's launches are counted at each
+    replay (the capturing call's warm-up, one chunk, counts too)."""
+    from vae_mdl_tpu_torch.evaluation import harness
+
+    model, cfg, _, batch = _eval_inputs(name, 8, cuda)
+    evaluator = make_batch_evaluator(model, cfg, 200, 100, with_khat=True, with_curve=True)
+    kernels = {"mdl": mdl_kernel, "dl": dl_kernel}.get(cfg.model.likelihood)
+    for seed, launched in ((5, 3), (6, 2)):
+        eager_gen = torch.Generator(cuda).manual_seed(seed)
+        want = evaluator.eager(batch, eager_gen)
+        gen = torch.Generator(cuda).manual_seed(seed)
+        before = None if kernels is None else kernels.launches
+        got = evaluator(batch, gen)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert gen.get_offset() == eager_gen.get_offset()
+        if kernels is not None:
+            assert kernels.launches - before == launched
+    assert evaluator.cache_size() == 1 and harness.cache_size(model) == 1
+    default = torch.cuda.default_generators[torch.cuda.current_device()]
+    torch.cuda.manual_seed(9)
+    want = evaluator.eager(batch)
+    offset = default.get_offset()
+    torch.cuda.manual_seed(9)
+    got = evaluator(batch)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert default.get_offset() == offset
+
+
+def test_a_second_evaluate_llh_captures_nothing(cuda, deterministic):
+    """The graphs outlive the evaluator: a second ``evaluate_llh`` on the same
+    model and shape replays the first one's graph (the padded tail batch
+    too) and returns what the eager loop returns for each batch's seed."""
+    from vae_mdl_tpu_torch.evaluation import harness
+
+    model, cfg, images, _ = _eval_inputs("model05", 12, cuda)
+    first = evaluate_llh(model, cfg, images, n_samples=200, k_chunk=100, batch_size=8)
+    assert harness.cache_size(model) == 1
+    second = evaluate_llh(model, cfg, images, n_samples=200, k_chunk=100, batch_size=8)
+    assert harness.cache_size(model) == 1
+    np.testing.assert_array_equal(first[1], second[1])
+    evaluator = make_batch_evaluator(model, cfg, 200, 100)
+    want = evaluator.eager(torch.as_tensor(images[:8], device=cuda),
+                           torch.Generator(cuda).manual_seed(_batch_seed(0, 0)))
+    np.testing.assert_array_equal(first[1][:8], want.cpu().numpy())
+
+
+def test_captured_evaluation_reads_params_as_given_after_a_train_step(cuda, deterministic):
+    """``params=`` (the EMA copy) and the model's own parameters after train
+    steps, which write them in place or anew: each captured evaluation equals
+    the eager one on the same weights."""
+    from vae_mdl_tpu_torch.train.state import create_train_state, eval_params, make_optimizer
+    from vae_mdl_tpu_torch.train.steps import make_train_step
+
+    model, cfg, _, batch = _eval_inputs("model05", 8, cuda)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ema_decay=0.9))
+    state = create_train_state(model, cfg.train)
+    evaluator = make_batch_evaluator(model, cfg, 200, 100)
+    for kind in ("captured", "eager", "captured"):
+        step = make_train_step(model, cfg, make_optimizer(cfg.train))
+        state, _ = (step if kind == "captured" else step.eager)(state, batch)
+        for params in (eval_params(cfg.train, state), None):
+            want = evaluator.eager(batch, torch.Generator(cuda).manual_seed(1), params=params)
+            got = evaluator(batch, torch.Generator(cuda).manual_seed(1), params=params)
+            assert torch.equal(got, want)
+
+
+def test_captured_evaluation_follows_parameters_given_new_storage(cuda, deterministic):
+    """Parameters loaded with ``assign=True`` after the capture live in new
+    storage: a replay copies them into the storage the graph reads and
+    equals the eager loop on the new weights."""
+    model, cfg, _, batch = _eval_inputs("model05", 8, cuda)
+    evaluator = make_batch_evaluator(model, cfg, 200, 100)
+    evaluator(batch, torch.Generator(cuda).manual_seed(1))
+    model.load_state_dict({name: p.detach() * 1.01 for name, p in model.named_parameters()},
+                          assign=True)
+    want = evaluator.eager(batch, torch.Generator(cuda).manual_seed(1))
+    got = evaluator(batch, torch.Generator(cuda).manual_seed(1))
+    assert torch.equal(got, want)
+
+
+def test_head_pad_model05_through_the_kernels_equals_the_plain_version(cuda, deterministic):
+    """model05 with ``head_pad=64``: the head's 50 of 64 channels are a view
+    that is not dense, which the MoDL kernels take on their direct path; the
+    loss and every gradient leaf equal the plain version's (the train step's
+    tolerances with float32 convolutions, on images of the 256 levels: the
+    loss within 1e-5, each leaf within 2e-4 in norm)."""
+    base = MODELS["model05"]
+    base = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, head_pad=64))
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randint(0, 256, (16, 32, 32, 3), generator=gen, device=cuda).float() / 255.0
+    eps = torch.randn((5, 16, base.n_latent), generator=gen, device=cuda)
+    results = {}
+    for which, use in (("kernel", None), ("plain", False)):
+        mcfg = dataclasses.replace(base, use_pallas=use)
+        model = build_model(mcfg, torch.Generator().manual_seed(0))
+        params = dict(model.named_parameters())
+        before = dict(mdl_kernel.launches_by_path), dict(mdl_kernel.backward_launches_by_path)
+        loss, _ = training_loss_fn(model, experiment("model05", model=mcfg),
+                                   prior_for(mcfg, "cuda"), x, 5, eps=eps)(params)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        results[which] = float(loss.detach()), dict(zip(params, grads))
+        if which == "kernel":
+            assert mdl_kernel.launches_by_path["direct"] - before[0]["direct"] == 1
+            assert mdl_kernel.backward_launches_by_path["direct"] - before[1]["direct"] == 1
+    (loss_k, grads_k), (loss_p, grads_p) = results["kernel"], results["plain"]
+    assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    for leaf, g in grads_p.items():
+        assert float((grads_k[leaf] - g).norm() / g.norm().clamp_min(1e-30)) <= 2e-4, leaf
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,side", [(128, 128, 4), (128, 64, 8), (64, 32, 16)])
+def test_polyphase_equals_conv_transpose2d_on_the_card(cuda, cin, cout, side, dtype):
+    """The polyphase form (cuDNN's 3x3 conv and a depth-to-space step)
+    against ``F.conv_transpose2d`` at model05's three decoder shapes: float32
+    within 1e-5 + 1e-5 |y| (TF32 off; the same products summed in another
+    order); bf16 within 1e-5 + 2^-7 (|y| + |b|): the polyphase form rounds the
+    conv's sum to bf16 and then its sum with the bias, the library rounds
+    once, each rounding within half an ulp (2^-8 relative)."""
+    import torch.nn.functional as F
+
+    from vae_mdl_tpu_torch.nn.encoders import ConvLayer, ConvSpec, polyphase_conv_transpose
+
+    gen = torch.Generator().manual_seed(side)
+    layer = ConvLayer(ConvSpec(cout, 4, 2, True, "none"), cin, gen).to(cuda)
+    x = torch.randn(64, cin, side, side, generator=gen).to(cuda)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = F.conv_transpose2d(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype),
+                                  stride=2, padding=1).float()
+        got = polyphase_conv_transpose(x, layer.weight, layer.bias, dtype).float()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * want.abs()
+    else:
+        bound = 1e-5 + 2 ** -7 * (want.abs() + layer.bias.abs()[:, None, None])
+    assert bool(((got - want).abs() <= bound).all())

@@ -192,13 +192,14 @@ def test_families_still_to_port_are_refused_by_name(name, what):
 
 
 def test_head_pad_and_unported_likelihoods_are_refused():
-    """``head_pad`` stays refused (a TPU lane-alignment experiment); "pmdl"
-    is ported now and builds; a likelihood that does not exist raises where
-    the head is built."""
+    """``head_pad`` is ported now and builds (the head emits 64 channels,
+    the observation keeps 50); "pmdl" is ported and builds; a likelihood
+    that does not exist raises where the head is built."""
     cfg = MODELS["model05"]
     padded = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, head_pad=64))
-    with pytest.raises(NotImplementedError, match="head_pad"):
-        build_model(padded, device="cpu")
+    model = build_model(padded, device="cpu")
+    assert model.decoder.conv_3.weight.shape[0] == 64
+    assert model.decode(torch.zeros(1, 1, cfg.n_latent)).dist.parameters.shape[-1] == 50
     pmdl = build_model(dataclasses.replace(cfg, likelihood="pmdl"), device="cpu")
     pxz = pmdl.decode(torch.zeros(1, 1, cfg.n_latent)).dist
     assert pxz.log_prob(torch.zeros(1, 32, 32, 3)).shape == (1, 1, 32, 32)

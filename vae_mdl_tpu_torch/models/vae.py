@@ -87,10 +87,6 @@ class VAE(nn.Module):
     def __init__(self, config: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
-        if cfg.decoder.head_pad:
-            raise NotImplementedError(
-                f"{cfg.name}: DecoderConfig.head_pad, a TPU lane-alignment experiment, "
-                "is not ported (ROADMAP.md, left out on purpose)")
         self.config = cfg
         dtype = DTYPES[cfg.compute_dtype]
         latents = cfg.latents()
@@ -118,7 +114,7 @@ class VAE(nn.Module):
                 dtype=dtype, generator=generator,
                 pre_specs=_specs(cfg.decoder.pre_layers), n_glu=cfg.decoder.n_glu,
                 glu_features=cfg.decoder.glu_features,
-                glu_activation=cfg.decoder.glu_activation)
+                glu_activation=cfg.decoder.glu_activation, head_pad=cfg.decoder.head_pad)
 
         # stochastic layers 2..L: inference (up) and generative (down) MLPs
         self.mlp_encoders, self.mlp_decoders = [], []

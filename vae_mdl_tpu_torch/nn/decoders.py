@@ -10,6 +10,7 @@ body may run in bf16.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -165,7 +166,10 @@ class ConvDecoder(nn.Module):
     the compute dtype and that layer in float32. Otherwise the whole stack
     runs at the compute dtype and a standalone 3x3 SAME conv ``head`` follows
     in float32 (model05 with ``likelihood="dl"``: 50 channels, then a head of
-    6). The head's ``[N, C, H, W]`` output is handed on as an
+    6). ``head_pad`` makes the head layer emit ``max(n_head, head_pad)``
+    channels (model05's ``conv_3`` 64 for 50), sliced back to ``n_head``
+    before the likelihood, as the JAX decoder does. The head's
+    ``[N, C, H, W]`` output is handed on as an
     ``[..., H, W, C]`` view, with no copy; the likelihood kernels read it
     through its strides. On a card that memory is channels-last: the NHWC
     grid viewed as NCHW is a channels-last tensor, and cuDNN keeps a
@@ -182,7 +186,7 @@ class ConvDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  pre_specs: Sequence[ConvSpec] = (), n_glu: int = 0,
-                 glu_features: int = 64, glu_activation: str = "relu"):
+                 glu_features: int = 64, glu_activation: str = "relu", head_pad: int = 0):
         super().__init__()
         self.base_size = tuple(base_size)
         self.likelihood = likelihood
@@ -200,13 +204,20 @@ class ConvDecoder(nn.Module):
                               generator)
         if n_glu:
             features = glu_features
-        self.convs = conv_stack(conv_specs, features, self, generator=generator)
         n_head = head_channels(likelihood, out_shape[-1], n_mix)
+        self.n_head = n_head
+        # head_pad: the head emits max(n_head, head_pad) channels, sliced back
+        # to n_head (the padded ones get no gradient)
+        n_emit = max(n_head, head_pad)
         self.folded_head = bool(conv_specs) and conv_specs[-1].features == n_head
+        if self.folded_head and n_emit != n_head:
+            conv_specs = tuple(conv_specs[:-1]) + (
+                dataclasses.replace(conv_specs[-1], features=n_emit),)
+        self.convs = conv_stack(conv_specs, features, self, generator=generator)
         if not self.folded_head:
             if conv_specs:
                 features = conv_specs[-1].features
-            self.head = SameConv(features, n_head, generator)
+            self.head = SameConv(features, n_emit, generator)
 
     def forward(self, z: torch.Tensor) -> Obs:
         h = self.act(self.Dense_0(z, self.dtype))
@@ -219,6 +230,10 @@ class ConvDecoder(nn.Module):
             out = apply_conv_spec(self.convs[-1], out.float(), torch.float32)
         else:
             out = self.head(apply_conv_stack(self.convs, out, self.dtype).float(), torch.float32)
+        if out.shape[1] != self.n_head:
+            # a padded head's slice is a view with the head's strides: not
+            # dense, so the likelihood kernels take their direct path on it
+            out = out[:, :self.n_head]
         return make_observation(unmerge(out.permute(0, 2, 3, 1)), self.likelihood,
                                 self.bound_logstd, self.use_pallas,
                                 self.likelihood_io_dtype)

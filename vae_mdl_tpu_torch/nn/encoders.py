@@ -1,7 +1,8 @@
 """Encoder networks: amortized inference q(z | x).
 
-Port of ``ConvSpec``, ``apply_conv_spec``, ``apply_conv_stack``,
-``MLPEncoder`` and ``ConvEncoder`` (with its GLU stack) from
+Port of ``ConvSpec``, ``use_polyphase_deconv``, ``PolyphaseConvTranspose``,
+``apply_conv_spec``, ``apply_conv_stack``, ``MLPEncoder`` and
+``ConvEncoder`` (with its GLU stack) from
 ``vae_mdl_tpu/nn/encoders.py``. Public tensors keep the JAX layout (images
 ``[B, H, W, C]``); inside, convolutions take ``[B, C, H, W]`` views of that
 NHWC data, which is channels-last memory.
@@ -95,15 +96,93 @@ class ConvLayer(nn.Module):
         return _activation(s.activation)(y)
 
 
-def apply_conv_spec(layer: ConvLayer, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """One layer at the given compute dtype (NCHW)."""
+def use_polyphase_deconv() -> bool:
+    """The automatic choice of the polyphase transposed conv: off, as in the
+    JAX package. ``apply_conv_stack(..., polyphase=True)`` opts in."""
+    return False
+
+
+# phase -> {tap of the common 3-wide window: tap of the 4-wide kernel}, in
+# the Flax (unflipped) kernel's order: phase 0 takes W[0], W[2], phase 1
+# W[1], W[3]
+_POLYPHASE_TAPS = ({0: 0, 1: 2}, {1: 1, 2: 3})
+
+
+def polyphase_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A kernel-4 stride-2 transposed conv's weight (``[in, out, 4, 4]``,
+    spatially flipped against Flax, as ``ConvLayer`` stores it) as the one
+    dense 3x3 conv's weight ``[out * 4, in, 3, 3]`` whose output channel
+    ``o * 4 + r * 2 + c`` is output channel ``o`` at phase ``(r, c)``, the
+    order ``F.pixel_shuffle`` reads."""
+    c_in, f = weight.shape[:2]
+    flax = weight.flip(2, 3)  # [in, out, a, b] with Flax's tap order
+    w3 = weight.new_zeros((f, 2, 2, c_in, 3, 3))
+    for r in range(2):
+        for c in range(2):
+            for pi, ai in _POLYPHASE_TAPS[r].items():
+                for pj, aj in _POLYPHASE_TAPS[c].items():
+                    w3[:, r, c, :, pi, pj] = flax[:, :, ai, aj].T
+    return w3.reshape(f * 4, c_in, 3, 3)
+
+
+def polyphase_conv_transpose(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``flax.linen.ConvTranspose(kernel 4, stride 2, SAME)`` on NCHW ``x``
+    as one dense 3x3 SAME conv producing each output channel's four phases,
+    then a depth-to-space step. A phase reads two of the three taps of the
+    common window ``(x[i - 1], x[i], x[i + 1])``:
+
+        y[2i,     .] = W[0] x[i - 1] + W[2] x[i]
+        y[2i + 1, .] = W[1] x[i]     + W[3] x[i + 1]      (the same in j)
+
+    in the Flax kernel's tap order, so the stored (flipped) kernel is
+    unflipped before its taps are placed (``polyphase_weight``)."""
+    w3 = polyphase_weight(weight.to(dtype))
+    y = F.conv2d(x.to(dtype), w3, padding=1)
+    return F.pixel_shuffle(y, 2) + bias.to(dtype)[:, None, None]
+
+
+class PolyphaseConvTranspose(nn.Module):
+    """A kernel-4 stride-2 SAME transposed conv computed the polyphase way
+    (``polyphase_conv_transpose``), NCHW in and out, no activation. Its
+    parameters are those of the transposed :class:`ConvLayer` (``weight``
+    ``[in, out, 4, 4]`` flipped against Flax, ``bias`` ``[out]``), so the
+    two take each other's weights; the JAX package's
+    ``PolyphaseConvTranspose`` holds Flax's ``nn.ConvTranspose``'s."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 4, stride: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if (kernel, stride) != (4, 2):
+            raise ValueError("the polyphase path takes kernel 4, stride 2; got "
+                             f"kernel {kernel}, stride {stride}")
+        self.weight = nn.Parameter(torch.empty(in_features, features, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        glorot_uniform_(self.weight, in_features * kernel * kernel,
+                        features * kernel * kernel, generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return polyphase_conv_transpose(x, self.weight, self.bias, dtype)
+
+
+def apply_conv_spec(layer: ConvLayer, x: torch.Tensor, dtype: torch.dtype,
+                    polyphase: Optional[bool] = None) -> torch.Tensor:
+    """One layer at the given compute dtype (NCHW). ``polyphase`` (None:
+    ``use_polyphase_deconv()``) computes a kernel-4 stride-2 transposed
+    layer with ``polyphase_conv_transpose``, on the same parameters."""
+    if polyphase is None:
+        polyphase = use_polyphase_deconv()
+    s = layer.spec
+    if s.transpose and polyphase and (s.kernel, s.stride) == (4, 2):
+        return _activation(s.activation)(
+            polyphase_conv_transpose(x, layer.weight, layer.bias, dtype))
     return layer(x, dtype)
 
 
 def apply_conv_stack(layers: Sequence[ConvLayer], x: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
+                     dtype: torch.dtype, polyphase: Optional[bool] = None) -> torch.Tensor:
     for layer in layers:
-        x = apply_conv_spec(layer, x, dtype)
+        x = apply_conv_spec(layer, x, dtype, polyphase)
     return x
 
 

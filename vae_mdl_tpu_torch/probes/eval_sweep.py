@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from vae_mdl_tpu_torch.bench import _eval_throughput
+from vae_mdl_tpu_torch.evaluation.harness import clear_cache
 from vae_mdl_tpu_torch.probes import kernel_structure
 from vae_mdl_tpu_torch.utils.timing import (
     eval_rates,
@@ -77,6 +78,7 @@ def grid(n_samples: int = 5000, batches=BATCHES, k_chunks=K_CHUNKS, device=None,
                                   **_memory(device)}
                     say(f"{label} FAILED: {out[label]}")
                     del e
+                    clear_cache(model)
                     if device.type == "cuda":
                         torch.cuda.empty_cache()
                     continue
@@ -85,7 +87,10 @@ def grid(n_samples: int = 5000, batches=BATCHES, k_chunks=K_CHUNKS, device=None,
                               **_memory(device)}
                 say(f"{label} -> {rates[0]:7.1f} imgs/s ({bs / rates[0]:.2f} s/batch, "
                     f"llh[0]={float(llh[0]):.1f}); launches {out[label]['launches']}")
+                # each point's graph holds its batch's peak: drop it before the next
+                clear_cache(model)
                 if device.type == "cuda":
+                    torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats()
     return out
 

@@ -209,6 +209,51 @@ def captures(device_type: str, backend: Optional[str]) -> bool:
     return backend is None or cuda_backend(str(backend)) == "nccl"
 
 
+def groups_capture(device_type: str, groups: Sequence) -> bool:
+    """The rule (``captures``) for a body whose collectives run over
+    ``groups`` (none: a body without collectives)."""
+    if not groups:
+        return captures(device_type, None)
+    return all(captures(device_type, dist.get_backend(group)) for group in groups)
+
+
+# -- warm-up and capture ---------------------------------------------------------
+
+
+def warm_up(fn: Callable, device) -> None:
+    """``fn()`` once on a side stream, before a capture: every kernel built
+    and loaded, cuDNN's and cuBLAS's handles made, each kernel's residency
+    asked, each group's NCCL communicator made by its first collective,
+    which a capture cannot do."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn()
+    current.wait_stream(side)
+
+
+def capture(fn: Callable, pool, generators: Sequence[torch.Generator] = ()):
+    """``fn()`` captured into a new ``torch.cuda.CUDAGraph`` in ``pool``,
+    with ``generators`` registered (a replay draws from their seed and
+    offset at that time) -> ``(graph, fn's result, the launches the graph
+    holds)``. The capture is thread-local: another thread's calls (the
+    trainer's prefetch) must not void it, and the autograd thread's
+    launches on the capturing stream are captured all the same. The
+    launch counters are put back after it; a replay adds the launches it
+    holds (``_add_counts``)."""
+    counts = launch_counts()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn()
+        return graph, out, _counts_since(counts)
+    finally:
+        _restore_counts(counts)
+
+
 # -- the captured step -----------------------------------------------------------
 
 
@@ -275,9 +320,7 @@ class CapturedStep:
         """The rule (``captures``) for this call: every group the window's
         collectives run over, on ``x``'s device."""
         groups = self.groups + ((state.tp_layout.group,) if state.tp_layout is not None else ())
-        if not groups:
-            return captures(x.device.type, None)
-        return all(captures(x.device.type, dist.get_backend(group)) for group in groups)
+        return groups_capture(x.device.type, groups)
 
     def __call__(self, state: TrainState, x: torch.Tensor, **noise):
         noise = {name: value for name, value in noise.items() if value is not None}
@@ -327,25 +370,16 @@ class _Graph:
         self._prepare(state)
         self._warm_up(state)
 
-        counts = launch_counts()
-        try:
-            self.graph = torch.cuda.CUDAGraph()
-            for rngs in self.rngs:
-                for name in owner.drawn:
-                    self.graph.register_generator_state(rngs[name])
-            view = self._view(state)
-            # thread-local: another thread's calls (the trainer's prefetch)
-            # must not void the capture; the autograd thread's launches on
-            # the capturing stream are captured all the same
-            with torch.cuda.graph(self.graph, pool=owner._pool,
-                                  capture_error_mode="thread_local"):
-                metrics = owner.window(view, self.x, self.rngs, self._beta_args(state.step))
-                for attr, tree in self.trees.items():
-                    _copy_changed(tree_leaves(tree), tree_leaves(getattr(view, attr)))
-                self.packed, self.unpack = pack_metrics(metrics)
-            self.launched = _counts_since(counts)
-        finally:
-            _restore_counts(counts)
+        def body():
+            metrics = owner.window(view, self.x, self.rngs, self._beta_args(state.step))
+            for attr, tree in self.trees.items():
+                _copy_changed(tree_leaves(tree), tree_leaves(getattr(view, attr)))
+            return pack_metrics(metrics)
+
+        view = self._view(state)
+        drawn = [rngs[name] for rngs in self.rngs for name in owner.drawn]
+        self.graph, (self.packed, self.unpack), self.launched = capture(body, owner._pool,
+                                                                         drawn)
 
     def _view(self, state: TrainState) -> TrainState:
         """The state as the window sees it: its parameters, the graph's own
@@ -372,12 +406,8 @@ class _Graph:
         """The window once on a side stream, on a view of the state whose
         parameters are put back after it."""
         saved = [p.detach().clone() for p in self.params]
-        current = torch.cuda.current_stream(self.x.device)
-        side = torch.cuda.Stream(self.x.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.owner.window(self._view(state), self.x, self.rngs, self._beta_args(state.step))
-        current.wait_stream(side)
+        warm_up(lambda: self.owner.window(self._view(state), self.x, self.rngs,
+                                          self._beta_args(state.step)), self.x.device)
         with torch.no_grad():
             torch._foreach_copy_(self.params, saved)
 

@@ -173,12 +173,16 @@ class Trainer:
         take ``(state, batch)`` with fixed shapes, so one capture is
         expected; checked at every eval interval, the mesh steps' as the
         single-device steps'. A step without a key cache (a caller's
-        wrapper) is skipped, and the others are still checked."""
-        for name, fn in (("train_step", self.train_step), ("eval_step", self.eval_step)):
-            cache_size = getattr(fn, "cache_size", None)
-            if cache_size is None:
-                continue
-            n = cache_size()
+        wrapper) is skipped, and the others are still checked. The model's
+        evaluation graphs (``evaluation.harness.cache_size``: the most batch
+        signatures one evaluator setting has seen) are checked the same way."""
+        from vae_mdl_tpu_torch.evaluation.harness import cache_size as eval_cache_size
+
+        sizes = [(name, fn.cache_size()) for name, fn in (("train_step", self.train_step),
+                                                          ("eval_step", self.eval_step))
+                 if hasattr(fn, "cache_size")]
+        sizes.append(("evaluate_llh", eval_cache_size(self.model)))
+        for name, n in sizes:
             if n > 1 and name not in self._retrace_warned:
                 self._retrace_warned.add(name)
                 print(f"[trainer] WARNING: {name} has {n} captured variants — an input "
