@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from vae_mdl_tpu_torch.data.sources import Arrays, load_dataset
+from vae_mdl_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -208,7 +209,8 @@ class DevicePrefetch:
     def __next__(self):
         if self._done:
             raise StopIteration
-        item = self._q.get()
+        with span("data.wait"):
+            item = self._q.get()
         if item is _END:
             self._done = True
             raise StopIteration

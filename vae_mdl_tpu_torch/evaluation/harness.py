@@ -78,6 +78,7 @@ from vae_mdl_tpu_torch.ops.math import (
     streaming_logmeanexp_init,
     streaming_logmeanexp_update,
 )
+from vae_mdl_tpu_torch.utils.tracing import timed
 
 
 def effective_chunks(n_samples: int, k_chunk: int) -> Tuple[int, int]:
@@ -415,13 +416,14 @@ class _EvalGraph:
         def body(n_chunks=None):
             return evaluator.body(self.x, self.generator, None, None, self.params, n_chunks)
 
-        # every chunk launches the same kernels at the same shapes, so the
-        # warm-up runs one chunk a sample shard (every rank computes one)
-        warm_up(lambda: body(min(evaluator.n_chunks, evaluator.n_sample)), batch.device)
-        # the warm-up's blocks back to the card before the capture takes its
-        # own, which it cannot take from the allocator's cache
-        torch.cuda.empty_cache()
-        self.graph, self.out, self.launched = capture(body, pool, (self.generator,))
+        with timed("capture"):
+            # every chunk launches the same kernels at the same shapes, so the
+            # warm-up runs one chunk a sample shard (every rank computes one)
+            warm_up(lambda: body(min(evaluator.n_chunks, evaluator.n_sample)), batch.device)
+            # the warm-up's blocks back to the card before the capture takes
+            # its own, which it cannot take from the allocator's cache
+            torch.cuda.empty_cache()
+            self.graph, self.out, self.launched = capture(body, pool, (self.generator,))
 
     def run(self, model, batch: torch.Tensor, generator: Optional[torch.Generator],
             params) -> List[torch.Tensor]:

@@ -98,6 +98,7 @@ from vae_mdl_tpu_torch.train.state import (
     tree_leaves,
     tree_map,
 )
+from vae_mdl_tpu_torch.utils.tracing import span, timed
 
 Metrics = Dict[str, object]
 _KERNEL_MODULES = ("mdl_kernel", "dl_kernel", "mdl_null", "io_probe", "sfu_probe")
@@ -290,6 +291,7 @@ class CapturedStep:
         self.trees = ("opt_state", "ema_params") if updates else ("ema_params",)
         self._keys: Dict[tuple, Optional["_Graph"]] = {}
         self._pool = None
+        self._span = "step.train" if updates else "step.eval"
 
     def cache_size(self) -> int:
         """The key cache's size, the counterpart of jit's ``_cache_size()``:
@@ -323,21 +325,22 @@ class CapturedStep:
         return groups_capture(x.device.type, groups)
 
     def __call__(self, state: TrainState, x: torch.Tensor, **noise):
-        noise = {name: value for name, value in noise.items() if value is not None}
-        if noise:
-            return self.eager(state, x, **noise)
-        key = self.key(x)
-        if not self.captures(state, x):
-            self._keys.setdefault(key, None)
-            return self.eager(state, x)
-        graph = self._keys.get(key)
-        if graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = _Graph(self, state, x)
-            self._keys[key] = graph
-        metrics = graph.run(state, x)
-        return (state, metrics) if self.updates else metrics
+        with span(self._span):
+            noise = {name: value for name, value in noise.items() if value is not None}
+            if noise:
+                return self.eager(state, x, **noise)
+            key = self.key(x)
+            if not self.captures(state, x):
+                self._keys.setdefault(key, None)
+                return self.eager(state, x)
+            graph = self._keys.get(key)
+            if graph is None:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                graph = _Graph(self, state, x)
+                self._keys[key] = graph
+            metrics = graph.run(state, x)
+            return (state, metrics) if self.updates else metrics
 
 
 def _matches(mine: List[torch.Tensor], bound: List[torch.Tensor]) -> bool:
@@ -367,8 +370,6 @@ class _Graph:
         # they were last made equal to (with their version counters)
         self.trees = {attr: _clone(getattr(state, attr)) for attr in owner.trees}
         self.synced = {attr: _synced(getattr(state, attr)) for attr in self.trees}
-        self._prepare(state)
-        self._warm_up(state)
 
         def body():
             metrics = owner.window(view, self.x, self.rngs, self._beta_args(state.step))
@@ -376,10 +377,13 @@ class _Graph:
                 _copy_changed(tree_leaves(tree), tree_leaves(getattr(view, attr)))
             return pack_metrics(metrics)
 
-        view = self._view(state)
-        drawn = [rngs[name] for rngs in self.rngs for name in owner.drawn]
-        self.graph, (self.packed, self.unpack), self.launched = capture(body, owner._pool,
-                                                                         drawn)
+        with timed("capture"):
+            self._prepare(state)
+            self._warm_up(state)
+            view = self._view(state)
+            drawn = [rngs[name] for rngs in self.rngs for name in owner.drawn]
+            self.graph, (self.packed, self.unpack), self.launched = capture(body, owner._pool,
+                                                                             drawn)
 
     def _view(self, state: TrainState) -> TrainState:
         """The state as the window sees it: its parameters, the graph's own

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from vae_mdl_tpu_torch.train.state import TrainState
+from vae_mdl_tpu_torch.utils.tracing import timed
 
 
 def _structure(tree):
@@ -137,22 +138,23 @@ class Checkpointer:
         ``<tag>.tmp``, then moved into place (the previous ``<tag>`` goes to
         ``<tag>.old`` for the moment between the two renames, and ``has``
         and the loaders put it back should a crash fall there)."""
-        sd = whole_state_dict(state)
-        if _rank() == 0:
-            path = self._path(tag)
-            tmp, old = path + ".tmp", path + ".old"
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            torch.save(sd, os.path.join(tmp, "state.pt"))
-            with open(os.path.join(tmp, "meta.json"), "w") as f:
-                json.dump({"step": int(state.step), "has_ema": state.ema_params is not None,
-                           "shapes": {"opt_state": _shapes(sd["opt_state"])}}, f)
-            shutil.rmtree(old, ignore_errors=True)
-            if os.path.isdir(path):
-                os.replace(path, old)
-            os.replace(tmp, path)
-            shutil.rmtree(old, ignore_errors=True)
-        _barrier()
+        with timed("checkpoint.save"):
+            sd = whole_state_dict(state)
+            if _rank() == 0:
+                path = self._path(tag)
+                tmp, old = path + ".tmp", path + ".old"
+                shutil.rmtree(tmp, ignore_errors=True)
+                os.makedirs(tmp)
+                torch.save(sd, os.path.join(tmp, "state.pt"))
+                with open(os.path.join(tmp, "meta.json"), "w") as f:
+                    json.dump({"step": int(state.step), "has_ema": state.ema_params is not None,
+                               "shapes": {"opt_state": _shapes(sd["opt_state"])}}, f)
+                shutil.rmtree(old, ignore_errors=True)
+                if os.path.isdir(path):
+                    os.replace(path, old)
+                os.replace(tmp, path)
+                shutil.rmtree(old, ignore_errors=True)
+            _barrier()
 
     def wait(self) -> None:
         """A no-op: saves are synchronous, so nothing is ever in flight. Kept

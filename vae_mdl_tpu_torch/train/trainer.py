@@ -66,6 +66,7 @@ from vae_mdl_tpu_torch.train.steps import (
 )
 from vae_mdl_tpu_torch.utils.images import fill_canvas
 from vae_mdl_tpu_torch.utils.logging import MetricLogger
+from vae_mdl_tpu_torch.utils.tracing import span
 
 
 class Trainer:
@@ -293,64 +294,66 @@ class Trainer:
         window_imgs = 0
         window_steps = 0
         for i in steps:
-            if stop_requested["flag"]:
-                print(f"[trainer] SIGTERM: checkpointing at step {self.state.step} and exiting")
-                break
-            if i == profile_at:
-                profiler = _start_profiler(self.device)
-            if self._device_data is not None:
-                self.state, metrics = self.train_step(self.state, self._device_data)
-                window_imgs += spc * cfg.data.batch_size
-            else:
-                batch = next(self._stream)
-                self.state, metrics = self.train_step(self.state, batch)
-                window_imgs += (batch.shape[0] * (batch.shape[1] if spc > 1 else 1)
-                                * self._n_shards)
-            window_steps += spc
-            if pbar is not None:
-                pbar.update(spc)
-            if profiler is not None and i >= profile_at + profile_steps:
-                _stop_profiler(profiler, profile_dir, self.device)
-                profiler = None
+            with span("trainer.iter"):
+                if stop_requested["flag"]:
+                    print(f"[trainer] SIGTERM: checkpointing at step {self.state.step} "
+                          "and exiting")
+                    break
+                if i == profile_at:
+                    profiler = _start_profiler(self.device)
+                if self._device_data is not None:
+                    self.state, metrics = self.train_step(self.state, self._device_data)
+                    window_imgs += spc * cfg.data.batch_size
+                else:
+                    batch = next(self._stream)
+                    self.state, metrics = self.train_step(self.state, batch)
+                    window_imgs += (batch.shape[0] * (batch.shape[1] if spc > 1 else 1)
+                                    * self._n_shards)
+                window_steps += spc
+                if pbar is not None:
+                    pbar.update(spc)
+                if profiler is not None and i >= profile_at + profile_steps:
+                    _stop_profiler(profiler, profile_dir, self.device)
+                    profiler = None
 
-            if i % eval_interval == 0:
-                # throughput over the window just finished (eval excluded)
-                self._sync()
-                dt = time.perf_counter() - window_t0
-                imgs_per_sec = window_imgs / dt if dt > 0 else 0.0
+                if i % eval_interval == 0:
+                    # throughput over the window just finished (eval excluded)
+                    self._sync()
+                    dt = time.perf_counter() - window_t0
+                    imgs_per_sec = window_imgs / dt if dt > 0 else 0.0
 
-                val_metrics = self.eval_step(self.state, self._put(next(self.val_iter)))
-                self._check_retrace()
-                if self.mesh is not None:  # the same mean on every rank
-                    val_metrics = _mean_metrics(val_metrics, self.mesh)
-                val_loss = float(val_metrics["loss"])
-                self.logger.scalars(i, metrics, prefix="Train")
-                self.logger.scalars(i, val_metrics, prefix="Evaluation")
-                self.logger.scalars(i, {"imgs_per_sec": imgs_per_sec,
-                                        "step_ms": 1000.0 * dt / max(1, window_steps)},
-                                    prefix="Perf")
-                if cfg.train.report_images:
-                    self.report(i)
+                    val_metrics = self.eval_step(self.state, self._put(next(self.val_iter)))
+                    self._check_retrace()
+                    if self.mesh is not None:  # the same mean on every rank
+                        val_metrics = _mean_metrics(val_metrics, self.mesh)
+                    val_loss = float(val_metrics["loss"])
+                    self.logger.scalars(i, metrics, prefix="Train")
+                    self.logger.scalars(i, val_metrics, prefix="Evaluation")
+                    self.logger.scalars(i, {"imgs_per_sec": imgs_per_sec,
+                                            "step_ms": 1000.0 * dt / max(1, window_steps)},
+                                        prefix="Perf")
+                    if cfg.train.report_images:
+                        self.report(i)
 
-                # fold the improved best validation loss in BEFORE the
-                # 'latest' save: a 'latest' with the stale threshold would,
-                # after a hard-kill resume, let a worse model replace 'best'
-                improved = val_loss < self.state.best_val_loss
-                if improved:
-                    self.state.best_val_loss = val_loss
-                self.ckpt.save(self.state, "latest")
-                if improved:
-                    self.ckpt.save(self.state, "best")
-                snap = cfg.train.snapshot_interval
-                if snap and i > 0 and i % snap == 0:
-                    # named by the true step count: the eval runs after the
-                    # step(s) at loop value i
-                    self.ckpt.save(self.state, f"step_{i + spc}")
-                    self.ckpt.prune_snapshots(cfg.train.max_snapshots)
+                    # fold the improved best validation loss in BEFORE the
+                    # 'latest' save: a 'latest' with the stale threshold would,
+                    # after a hard-kill resume, let a worse model replace 'best'
+                    improved = val_loss < self.state.best_val_loss
+                    if improved:
+                        self.state.best_val_loss = val_loss
+                    self.ckpt.save(self.state, "latest")
+                    if improved:
+                        self.ckpt.save(self.state, "best")
+                    snap = cfg.train.snapshot_interval
+                    if snap and i > 0 and i % snap == 0:
+                        # named by the true step count: the eval runs after the
+                        # step(s) at loop value i
+                        self.ckpt.save(self.state, f"step_{i + spc}")
+                        self.ckpt.prune_snapshots(cfg.train.max_snapshots)
 
-                window_t0 = time.perf_counter()
-                window_imgs = 0
-                window_steps = 0
+                    window_t0 = time.perf_counter()
+                    window_imgs = 0
+                    window_steps = 0
 
         if pbar is not None:
             pbar.close()
