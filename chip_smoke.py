@@ -10,12 +10,18 @@ and nothing falls back to a plain version.
 
 1. device: prints ``nvidia-smi``'s name and power limit; needs CUDA and a
    card whose published peaks ``utils/flops.py`` knows;
-2. build: compiles the four sources under ``vae_mdl_tpu_torch/csrc/``
+2. build: compiles the five sources under ``vae_mdl_tpu_torch/csrc/``
    (``mdl_log_prob.cu``, ``dl_log_prob.cu``, ``sfu_probe.cu``,
-   ``io_probe.cu``) with nvcc, all at once, and prints ptxas's registers and
-   spills of the kernels the paths launch; then reads off the strides in
-   which layout model05's and model03's heads hand their output to the
-   likelihood kernels (that layout's case goes into the kernels line);
+   ``io_probe.cu``, ``phase_shuffle.cu``) with nvcc, all at once, and prints
+   ptxas's registers and spills of the kernels the paths launch; then reads
+   off the strides in which layout model05's and model03's heads hand their
+   output to the likelihood kernels in a train step (channels-last) and in
+   a forward-only float32 call (NCHW: the phase route, ``nn/encoders.py``
+   ``takes_phase_route``, runs the transposed layers and the layers after
+   them NCHW); the train layout's case at k = 5 and the eval layout's at
+   k = 100 go into the kernels line. The model's own head outputs that
+   phases 3-6 and 17 hand the kernels (``roofline.head_parameters``,
+   ``model_head``) are NHWC-contiguous, a train step's layout;
 3. the special-function probe kernel (K6) against its plain version at a
    depth of 2 and 3 iterations, inputs in [0.5, 1.5], for the five ops, the
    cascade and the re-ranging alone, with and without re-ranging, at every
@@ -115,10 +121,12 @@ and nothing falls back to a plain version.
    synthetic uint8 images, in both configs through the kernels and in
    float32 through the plain version: the median imgs/s of 5 timed calls
    after a warm-up, the peak memory, and a finite loss that falls; every
-   MoDL forward of model05's evaluation and training and every MoDL
-   backward of its training must have taken the tile path, and every DL
-   forward and backward of model03's (whose DL head launches no MoDL
-   kernel) the DL kernels' tile path; (c) the
+   MoDL forward and backward of model05's training and every DL forward and
+   backward of model03's (whose DL head launches no MoDL kernel) must have
+   taken the tile path, and each evaluation config's likelihood forward
+   ``eval_path``: the direct path for the float32 configs, whose decoders
+   take the phase route (its epilogue launched) and hand on an NCHW head,
+   the tile path for the bf16 ones; (c) the
    rest of the measurement path on model05, batch 128, k = 5, f32, through
    ``utils/timing.py``: ``probes.kernel_structure`` (the four-way step:
    the null kernels must launch in ``dma`` (both on the direct path) and
@@ -150,7 +158,9 @@ and nothing falls back to a plain version.
 13. the training run as users start it, model05 at full width (f32) on
    ``synthetic:svhn_cropped`` (batch 128, validation 500, so the whole
    256-image split), with every count set to 0 before (a) and read after
-   (f), every MoDL launch on the tile path, under cuDNN's deterministic
+   (f), every MoDL backward and as many forwards (the train steps') on the
+   tile path, the validations' and evaluations' forwards on the direct path
+   (the phase route's NCHW head), under cuDNN's deterministic
    algorithms (set for this phase and put back after it): (a)
    ``Trainer(cfg).fit()`` to step 40, evaluating every 20 steps with EMA
    (0.999), report grids and a snapshot every 20 steps, one kept; (b) in a
@@ -173,7 +183,10 @@ and nothing falls back to a plain version.
    fresh temporary directory made the working directory (the CLI writes
    ``./assets/``; the repository's own ``assets/`` is never touched), under
    phase 13's cuDNN flags, every count set to 0 before (a) and read after
-   (f), every MoDL and DL launch on the tile path: (a) ``train model05`` at
+   (f), every MoDL backward and DL launch on the tile path, model05's
+   MoDL forwards on the tile path (train steps, the bf16 eval) and the
+   direct path (the float32 evaluations, through the phase route): (a)
+   ``train model05`` at
    batch 128 on ``synthetic:svhn_cropped``, 40 steps, EMA 0.999, the final
    5000-IS eval with k-hat and curve; its printed LLH equal to
    ``evaluate_llh`` on the best checkpoint's EMA weights, its ``latest``
@@ -183,15 +196,19 @@ and nothing falls back to a plain version.
    ``sample --n 64`` and ``export`` of the sampler, reconstructor and encoder
    at n = 64, each program loaded with ``load_exported`` and equal to the
    live function on the same draws (uint8 equal, floats within
-   ``EXPORT_ATOL``), the live sampler and its program timed at n = 64 and
-   1024, no likelihood launch; (d) ``train model03 --bf16`` (the DL pair)
+   ``EXPORT_ATOL``) with the phase route off (``route_off``: a traced call
+   keeps ``F.conv_transpose2d``), its difference from the live function on
+   the route printed, the live sampler and its program timed at n = 64 and
+   1024, no likelihood launch, the live decoder's epilogues; (d) ``train model03 --bf16`` (the DL pair)
    and ``train model01`` (the output-bias init, the Bernoulli head), 20
    steps each, the loss finite and falling; (e) ``describe model05 --json``:
    the live model's parameter count, the card's own peak; (f) ``parity
    model05 --allow-synthetic``: a strict JSON report with the JAX report's
    keys. It prints one ``cli:`` JSON line.
 15. the parallel paths (``vae_mdl_tpu_torch/parallel/``), model05 at full
-   width (f32, batch 128, k = 5), every MoDL launch on the tile path: (a) a
+   width (f32, batch 128, k = 5), every train step's MoDL launch on the tile
+   path and every evaluation's forward on the direct path (the phase
+   route's NCHW head; ``_check_paths``): (a) a
    world of one over NCCL (``init_distributed`` on a FileStore,
    ``make_mesh(MeshConfig())``): one step each of ``make_train_step``,
    ``make_shard_map_train_step`` and ``make_zero1_train_step`` from one
@@ -257,7 +274,9 @@ and nothing falls back to a plain version.
    keys exactly ``bench.KEYS`` and every number in it finite, and its
    launches (the ``launches:`` line of its progress; every MoDL and DL
    launch on the tile path, the probe kernel for the SFU floor) into the
-   kernels line as the ``bench`` path; (b) the MoDL forward on model05's
+   kernels line as the ``bench`` path, and no direct path in any probe but
+   the likelihood forward of a float32 model05 evaluation (perf_probe's and
+   ablation_attribution's, through the phase route); (b) the MoDL forward on model05's
    own head output at ``MEASURE_SHAPES``, the shapes the bench and the
    probes launch that phases 4 and 10 do not (the bench's eval ``[200,
    128]`` with the bf16 boundary, the k-chunk sweep's 50 and 250, the eval
@@ -345,8 +364,9 @@ and nothing falls back to a plain version.
    turns (``EVAL_AB``: eager, captured, captured, eager); one traced batch
    of each (device-busy ms, idle share, host launch calls, device kernels);
    a second ``evaluate_llh`` that captures nothing; with every count set to
-   0 before (a) and read after it, the MoDL forward on the tile path and
-   the DL forward; (b) the EMA copy through ``params=`` and the model's own
+   0 before (a) and read after it, each case's likelihood forward on its
+   ``eval_path`` (model05 f32 direct, through the phase route; the others
+   tiled) and the phase route's epilogue; (b) the EMA copy through ``params=`` and the model's own
    weights after a captured, an eager and a captured train step, captured
    equal to eager (model05 f32, 200 samples); (c) model05 with
    ``head_pad=64``: phase 10b's train step check and a 200-IS eval through
@@ -361,6 +381,22 @@ and nothing falls back to a plain version.
    the ``eval capture`` path. Phase 20 alone: ``python3 -c "import
    chip_smoke as c; smi = c.phase_device(); c.phase_build();
    c.phase_eval_capture(smi)"``.
+21. the phase route (``nn/encoders.py`` ``phase_conv_transpose``, the
+   epilogue ``ops/cuda/phase_shuffle.py``): at model05's three transposed
+   layers at the 5000-IS evaluator's k-chunk (``ROUTE_EVAL_N`` = 12,800
+   samples) and the zoo's other routed layers and examples/custom_model.py's
+   at ``ROUTE_SMALL_N``, float32, on the NCHW grid the route's 2x2 conv
+   writes: the kernel against its plain version (bit for bit for relu and
+   none, gelu within an ulp of |y| + 1e-7), and the route against
+   ``F.conv_transpose2d`` and the activation within ``ROUTE_RTOL``,
+   ``ROUTE_ATOL`` (the evaluations' plain versions take the route too, so
+   this is the check that holds it to the library); at model05's layers
+   the kernel, its plain version and ``library_ms`` (``pixel_shuffle`` +
+   bias + activation on the phases already stacked) in turns, the bound
+   (its output written and its grid's windows read once), and the whole
+   route against ``F.conv_transpose2d`` in turns. Its record in the kernels
+   line sums model05's three layers (``layers`` holds each) and counts the
+   main paths' launches.
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -422,6 +458,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vae_mdl_tpu_torch.distributions.discretized import discretized_logistic_log_prob
 from vae_mdl_tpu_torch.distributions.mixture import mixture_log_prob
@@ -441,7 +478,18 @@ from vae_mdl_tpu_torch.data.pipeline import iterators_from_splits, make_splits
 from vae_mdl_tpu_torch.models.export import load_exported
 from vae_mdl_tpu_torch.models.inference import make_encoder_fn, make_reconstructor, make_sampler
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
-from vae_mdl_tpu_torch.ops.cuda import build, dl_kernel, io_probe, mdl_kernel, mdl_null, sfu_probe
+from vae_mdl_tpu_torch.nn import encoders
+from vae_mdl_tpu_torch.nn.blocks import _activation
+from vae_mdl_tpu_torch.nn.encoders import ConvSpec, phase_conv_transpose, phase_weight
+from vae_mdl_tpu_torch.ops.cuda import (
+    build,
+    dl_kernel,
+    io_probe,
+    mdl_kernel,
+    mdl_null,
+    phase_shuffle,
+    sfu_probe,
+)
 from vae_mdl_tpu_torch.probes import kernel_isolate, kernel_isolate2, kernel_structure, roofline
 from vae_mdl_tpu_torch.train.checkpoint import Checkpointer
 from vae_mdl_tpu_torch.train.state import (
@@ -541,6 +589,9 @@ DL_BIN = (0.0, 1.0, 1.0 / 255.0)
 
 SFU_SOURCE = "vae_mdl_tpu_torch/csrc/sfu_probe.cu"
 IO_SOURCE = "vae_mdl_tpu_torch/csrc/io_probe.cu"
+PHASE_SOURCE = "vae_mdl_tpu_torch/csrc/phase_shuffle.cu"
+REPLACES_PHASE = ("none: the port's own, for cuDNN's float32 transposed conv (the JAX package "
+                  "leaves its transposed convs to XLA)")
 REPLACES_K6 = "vae_mdl_tpu/ops/pallas/vpu_probe.py:57"
 REPLACES_P1 = "scripts/kernel_isolate.py:31"
 REPLACES_P2 = "scripts/kernel_isolate2.py:29"
@@ -647,7 +698,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    sources = [mdl_kernel.SOURCE, dl_kernel.SOURCE, sfu_probe.SOURCE, io_probe.SOURCE]
+    sources = [mdl_kernel.SOURCE, dl_kernel.SOURCE, sfu_probe.SOURCE, io_probe.SOURCE,
+               phase_shuffle.SOURCE]
     fresh = [not build.library_path(source).exists() for source in sources]
     t0 = time.perf_counter()
     libs = build.build_all(sources)  # one nvcc per source, started together
@@ -658,9 +710,11 @@ def phase_build() -> None:
     # the instantiations the paths launch: MoDL at n_mix = 5, the DL kernels'
     # direct path at four merged dimensions with 32-bit indices and their
     # tile path, the probe at the default chains, every kernel of io_probe.cu
+    # and of phase_shuffle.cu
     wanted = (("Li5E",), ("IjLi4E", "kernel_tiled"), (f"Li{sfu_probe.DEFAULT_CHAINS}EE",),
-              ("",))
-    for lib, family, want in zip(libs, ("MoDL n_mix=5", "DL", "probe", "io"), wanted):
+              ("",), ("",))
+    for lib, family, want in zip(libs, ("MoDL n_mix=5", "DL", "probe", "io", "phase"),
+                                 wanted):
         lines = lib.with_suffix(".log").read_text().splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(w in line for w in want):
@@ -712,8 +766,9 @@ def roofline_path(smi: str) -> dict:
     roof = roofline.run(repeats=3, n_iters=3, n_repeats=4, say=say)
     counts = probe_counts()
     say(f"roofline main path: kernel launches {counts}")
+    # phase_shuffle: head_parameters' forward-only float32 decoder takes the phase route
     _only(counts, ("sfu_probe", "mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob",
-                   "dl_log_prob_backward"), "the roofline")
+                   "dl_log_prob_backward", "phase_shuffle"), "the roofline")
     _took(mdl_kernel.launches_by_path, "tiled", "the roofline's MoDL forward")
     _took(mdl_kernel.backward_launches_by_path, "tiled", "the roofline's MoDL backward")
     _took(dl_kernel.launches_by_path, "tiled", "the roofline's DL forward")
@@ -1147,7 +1202,8 @@ def head_view(head: torch.Tensor, k: int) -> torch.Tensor:
 def model_head(name: str, k: int, batch: int = BATCH):
     """A DL model's own head output at initialisation (its config, seeded
     weights and noise) on one seeded batch: (x in [0, 1], the head ``[k, B,
-    H, W, 6]`` as the decoder hands it on)."""
+    H, W, 6]`` NHWC-contiguous, as a train step's decoder hands it on; a
+    float32 forward-only decoder that takes the phase route hands on NCHW)."""
     cfg = MODELS[name]
     model = seeded_model(cfg)
     x = torch.as_tensor(images(batch, cfg.image_shape), device="cuda").float() / 255.0
@@ -1155,7 +1211,7 @@ def model_head(name: str, k: int, batch: int = BATCH):
         dist = model(x, k, generator=torch.Generator("cuda").manual_seed(SEED))[2].dist
     if not dist._halves_of_head():
         raise AssertionError(f"{name}'s observation does not carry its head")
-    return x, dist.head
+    return x, dist.head.contiguous()
 
 
 def dl_fwd(x, loc, logscale, path=None):
@@ -1740,6 +1796,45 @@ def _took(by_path: dict, path: str, what: str) -> None:
         raise AssertionError(f"{what} took {by_path}, not the {path} path alone")
 
 
+def routed_layers(cfg) -> int:
+    """The transposed layers of ``cfg``'s decoder that take the phase route
+    in a forward-only call on the card (``encoders.takes_phase_route`` at
+    the model's compute dtype)."""
+    specs = getattr(getattr(cfg, "decoder", None), "conv_layers", ())
+    dtype = getattr(torch, cfg.compute_dtype)
+    return sum(encoders.takes_phase_route(ConvSpec(*spec), "cuda", dtype, False)
+               for spec in specs)
+
+
+def eval_path(cfg) -> str:
+    """The memory path of the likelihood's forward in a forward-only call of
+    ``cfg``'s model: the direct path where its decoder takes the phase route,
+    which runs the transposed layers and the layers after them NCHW and so
+    hands on an NCHW head; else the tile path (a channels-last head)."""
+    return "direct" if routed_layers(cfg) else "tiled"
+
+
+def _check_paths(counts: dict, what: str, steps: bool, evaluates: bool) -> None:
+    """Fail unless model05's MoDL launches in ``counts`` (``"tiled"``: the
+    forward's by memory path, ``"backward tiled"``: the backward's) took the
+    paths of the calls that made them: train ``steps`` (autograd records
+    the decoder, the head is channels-last) a forward and a backward each,
+    all on the tile path; float32 evaluations (``evaluates``: validations,
+    ``evaluate_llh``) forwards alone on the direct path, through the phase
+    route, whose epilogue must have launched; nothing else."""
+    fwd, route = counts["tiled"], counts.get("phase_shuffle", 0)
+    if steps:
+        _took(counts["backward tiled"], "tiled", f"{what}'s MoDL backward")
+    want = {"tiled": counts["backward tiled"]["tiled"] if steps else 0}
+    if (fwd["tiled"] != want["tiled"] or (fwd["direct"] > 0) != evaluates
+            or (route > 0) != evaluates or sum(fwd.values()) != fwd["tiled"] + fwd["direct"]):
+        raise AssertionError(f"{what}: MoDL forwards by path {fwd}, backwards "
+                             f"{counts.get('backward tiled')}, phase route epilogues {route}: "
+                             f"not {'train steps ' if steps else ''}"
+                             f"{'and ' if steps and evaluates else ''}"
+                             f"{'float32 evaluations' if evaluates else ''}")
+
+
 def structure_path(smi: str):
     """This slice's main path, second part: the four-way step and the
     memory-path probes on model05, batch 128, k = 5, f32, each with every
@@ -2032,6 +2127,19 @@ def phase_profile(name: str) -> None:
             f"{n_kernels} device kernels; {shares}; {per_launch}")
 
 
+def eval_launches(cfg, launched: dict, what: str) -> None:
+    """Fail unless a forward-only call of ``cfg``'s model launched its
+    likelihood's forward on ``eval_path(cfg)`` alone, and the phase route's
+    epilogue exactly where its decoder takes the route."""
+    own = "mdl_log_prob" if cfg.likelihood == "mdl" else "dl_log_prob"
+    path = eval_path(cfg)
+    paths = {p: launched.get(f"{own} {p}", 0) for p in ("tiled", "direct")}
+    _took(paths, path, f"{what}'s {own}")
+    if (launched.get("phase_shuffle", 0) > 0) != bool(routed_layers(cfg)):
+        raise AssertionError(f"{what}: {launched.get('phase_shuffle', 0)} phase route "
+                             f"epilogues for {routed_layers(cfg)} routed layers")
+
+
 def phase_eval(name: str, smi: str):
     """The main path of evaluation. -> {config: imgs/s}."""
     base = MODELS[name]
@@ -2039,6 +2147,7 @@ def phase_eval(name: str, smi: str):
     batch = images(n, base.image_shape)
     rates = {}
     for which, cfg in configs_of(name, plain=False).items():
+        before = launches_now()
         model = seeded_model(cfg)
         ecfg = experiment(name, model=cfg)
         llh, per_image, metrics = evaluate_llh(model, ecfg, batch, n_samples=5000,
@@ -2061,8 +2170,11 @@ def phase_eval(name: str, smi: str):
             raise AssertionError(f"{name} 5000-IS {which}: non-finite result")
         if per_image.shape != (n,):
             raise AssertionError(f"{name} 5000-IS {which}: per-image shape {per_image.shape}")
+        eval_launches(cfg, launched_since(before), f"{name} 5000-IS {which}")
 
-    # the same 200-sample evaluation through the kernel and the plain version
+    # the same 200-sample evaluation through the kernel and the plain version: the
+    # likelihood kernel held to its plain version (both models take the phase
+    # route where the decoder does; phase 21 holds the route to F.conv_transpose2d)
     plain_cfg = dataclasses.replace(base, use_pallas=False)
     got = evaluate_llh(seeded_model(base), experiment(name), batch, n_samples=200,
                        k_chunk=100, batch_size=n, seed=SEED)[1]
@@ -2077,23 +2189,30 @@ def phase_eval(name: str, smi: str):
 
 def phase_layout() -> dict:
     """The memory layout in which each model's head hands its output to the
-    likelihood kernel, read off the strides: the decoder's dense layer is
-    reshaped to an NHWC grid and viewed as NCHW, which is channels-last
-    memory, and cuDNN keeps a channels-last input's format through the
-    stack. -> {"model05": "nhwc" | "nchw", "model03": the same}: the layout
-    whose case goes into the kernels line."""
+    likelihood kernel, read off the strides, in a train step and in a
+    forward-only call. In a train step (autograd records the decoder) the
+    decoder's dense layer is reshaped to an NHWC grid and viewed as NCHW,
+    which is channels-last memory, and cuDNN keeps a channels-last input's
+    format through the stack. In a forward-only float32 call the phase route
+    (``nn/encoders.py`` ``takes_phase_route``) runs the transposed layers,
+    and the layers after them, NCHW. -> {"model05": {"train": "nhwc" |
+    "nchw", "eval": the same}, "model03": the same}: the layouts whose cases
+    go into the kernels line (the train layout's at k = 5, the eval
+    layout's at k = 100)."""
     layouts = {}
     for name in ("model05", "model03"):
         cfg = MODELS[name]
         model = seeded_model(cfg)
         x = torch.as_tensor(images(2), device="cuda").float() / 255.0
-        with torch.inference_mode():
-            dist = model(x, 1, generator=torch.Generator("cuda").manual_seed(SEED))[2].dist
-        head = dist.parameters if cfg.likelihood == "mdl" else dist.loc
-        channel, width = head.stride(-1), head.stride(-2)
-        layouts[name] = "nhwc" if channel < width else "nchw"
-        say(f"{name}: the head hands the likelihood {tuple(head.shape)} with strides "
-            f"{head.stride()}: {layouts[name]}")
+        layouts[name] = {}
+        for mode, context in (("train", torch.enable_grad), ("eval", torch.inference_mode)):
+            with context():
+                dist = model(x, 1, generator=torch.Generator("cuda").manual_seed(SEED))[2].dist
+            head = dist.parameters if cfg.likelihood == "mdl" else dist.loc
+            channel, width = head.stride(-1), head.stride(-2)
+            layouts[name][mode] = "nhwc" if channel < width else "nchw"
+            say(f"{name} {mode}: the head hands the likelihood {tuple(head.shape)} with strides "
+                f"{head.stride()}: {layouts[name][mode]}")
     return layouts
 
 
@@ -2110,13 +2229,18 @@ def main_path(name: str, path: str, smi: str) -> dict:
     counts = probe_counts()
     say(f"{name} {path} main path: kernel launches {counts}")
     own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
-    _only(counts, [own] + ([f"{own}_backward"] if path == "train" else []),
-          f"the {name} {path} path")
+    # an evaluation's float32 config takes the phase route where its decoder
+    # has a layer for it (phase_eval checks each config's paths)
+    routed = path == "eval" and any(routed_layers(cfg)
+                                    for cfg in configs_of(name, plain=False).values())
+    _only(counts, [own] + ([f"{own}_backward"] if path == "train" else [])
+          + (["phase_shuffle"] if routed else []), f"the {name} {path} path")
     if own == "mdl_log_prob":
         say(f"{name} {path} main path: MoDL forward launches by memory path "
             f"{mdl_kernel.launches_by_path}")
-        _took(mdl_kernel.launches_by_path, "tiled", f"the {name} {path} path's MoDL forward")
-        counts["mdl_log_prob tiled"] = mdl_kernel.launches_by_path["tiled"]
+        if path == "train":
+            _took(mdl_kernel.launches_by_path, "tiled", f"the {name} train path's MoDL forward")
+        counts.update({f"mdl_log_prob {p}": n for p, n in mdl_kernel.launches_by_path.items()})
     if own == "mdl_log_prob" and path == "train":
         by_memory_path = mdl_kernel.backward_launches_by_path
         say(f"{name} train main path: MoDL backward launches by memory path {by_memory_path}")
@@ -2124,7 +2248,8 @@ def main_path(name: str, path: str, smi: str) -> dict:
     if own == "dl_log_prob":
         say(f"{name} {path} main path: DL forward launches by memory path "
             f"{dl_kernel.launches_by_path}, backward {dl_kernel.backward_launches_by_path}")
-        _took(dl_kernel.launches_by_path, "tiled", f"the {name} {path} path's DL forward")
+        if path == "train":
+            _took(dl_kernel.launches_by_path, "tiled", f"the {name} train path's DL forward")
         counts.update({f"dl_log_prob {p}": n for p, n in dl_kernel.launches_by_path.items()})
         if path == "train":
             _took(dl_kernel.backward_launches_by_path, "tiled",
@@ -2386,10 +2511,12 @@ def _phase_trainer(root: str, smi: str) -> dict:
     counts = probe_counts()
     say(f"trainer main path: kernel launches {counts}; MoDL forward by memory path "
         f"{mdl_kernel.launches_by_path}, backward {mdl_kernel.backward_launches_by_path}")
-    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward"), "the training run")
-    _took(mdl_kernel.launches_by_path, "tiled", "the training run's MoDL forward")
-    _took(mdl_kernel.backward_launches_by_path, "tiled", "the training run's MoDL backward")
+    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward", "phase_shuffle"), "the training run")
+    _check_paths({**counts, "tiled": mdl_kernel.launches_by_path,
+                  "backward tiled": mdl_kernel.backward_launches_by_path},
+                 "the training run", steps=True, evaluates=True)
     counts["mdl_log_prob tiled"] = mdl_kernel.launches_by_path["tiled"]
+    counts["mdl_log_prob direct"] = mdl_kernel.launches_by_path["direct"]
     say("trainer: " + json.dumps({
         "card": smi,
         "trainer_imgs_per_sec_window2": window2["imgs_per_sec"],
@@ -2465,6 +2592,19 @@ def launches_now() -> dict:
             **{f"dl_log_prob {p}": n for p, n in dl_kernel.launches_by_path.items()},
             **{f"dl_log_prob_backward {p}": n
                for p, n in dl_kernel.backward_launches_by_path.items()}}
+
+
+@contextlib.contextmanager
+def route_off():
+    """Within the block no layer takes the phase route, as in a call that
+    ``torch.export`` traces (``takes_phase_route`` says no there): the live
+    function as an exported program holds it, ``F.conv_transpose2d``."""
+    rule = encoders.takes_phase_route
+    encoders.takes_phase_route = lambda *args: False
+    try:
+        yield
+    finally:
+        encoders.takes_phase_route = rule
 
 
 def launched_since(before: dict) -> dict:
@@ -2572,16 +2712,22 @@ def _phase_cli(root: str, smi: str) -> dict:
         serve = load_exported(path)
         load_s = time.perf_counter() - t0
         got = serve(gen()) if what == "sampler" else serve(gen(), x)
-        want = live[what]()
+        with route_off():  # the program holds F.conv_transpose2d
+            want = live[what]()
+        routed = live[what]()  # the live decoder on the phase route
         if what == "sampler":
             diff = int((got.int() - want.int()).abs().max())
             ok = got.dtype == torch.uint8 and diff == 0
+            route_diff = int((got != routed).sum())  # pixels off, the route's sums' order
         else:
             pairs = zip(got, want) if what == "encoder" else [(got, want)]
             diff = max(float((a - b).abs().max()) for a, b in pairs)
             ok = diff <= EXPORT_ATOL
+            pairs = zip(got, routed) if what == "encoder" else [(got, routed)]
+            route_diff = max(float((a - b).abs().max()) for a, b in pairs)
         exported[what] = {"export_cli_s": export_s, "load_s": load_s,
-                          "pt2_mb": os.path.getsize(path) / 1e6, "max_abs_diff": diff}
+                          "pt2_mb": os.path.getsize(path) / 1e6, "max_abs_diff": diff,
+                          "against_the_route": route_diff}
         if not ok:
             raise AssertionError(f"cli (c): the exported {what} differs from live by {diff}")
     rates = {}
@@ -2600,8 +2746,9 @@ def _phase_cli(root: str, smi: str) -> dict:
                     "exported_imgs_per_sec": rate(lambda: serve(gen()), n)}
     sampled = launched_since(before)
     say(f"cli (c): sample, export and the loaded programs on {smi}: {exported}; imgs/s "
-        f"{rates}; likelihood launches {sampled}")
-    if sampled:
+        f"{rates}; launches {sampled} (the phase route's epilogue: the live decoder's)")
+    likelihood = {k: n for k, n in sampled.items() if k.startswith(("mdl", "dl"))}
+    if likelihood or not sampled.get("phase_shuffle"):
         raise AssertionError(f"cli (c): sampling or export launched {sampled}")
 
     # (d) model03 in bf16 (the DL pair) and model01 (the bias init, Bernoulli)
@@ -2641,12 +2788,16 @@ def _phase_cli(root: str, smi: str) -> dict:
     counts.update({k: n for k, n in launches_now().items() if " " in k})
     say(f"cli main path: kernel launches {counts}")
     _only({k: n for k, n in counts.items() if " " not in k},
-          ("mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob", "dl_log_prob_backward"),
-          "the CLI")
-    for kernel in ("mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob",
-                   "dl_log_prob_backward"):
+          ("mdl_log_prob", "mdl_log_prob_backward", "dl_log_prob", "dl_log_prob_backward",
+           "phase_shuffle"), "the CLI")
+    for kernel in ("mdl_log_prob_backward", "dl_log_prob", "dl_log_prob_backward"):
         if counts[f"{kernel} direct"]:
             raise AssertionError(f"the CLI launched {kernel} on the direct path")
+    # model05's float32 evaluations take the phase route, whose NCHW head
+    # sends the MoDL forward down its direct path; its train steps and bf16
+    # evaluation the tile path
+    if not (counts["mdl_log_prob direct"] and counts["mdl_log_prob tiled"]):
+        raise AssertionError(f"the CLI's MoDL forwards by path: {counts}")
     seconds = time.perf_counter() - t_phase
     say("cli: " + json.dumps({
         "card": smi, "seconds": seconds,
@@ -2926,12 +3077,6 @@ def spawn_ranks(world: int, backend: str, work: str, task: str = "parallel",
             for r in range(world)]
 
 
-def _check_tiled(counts: dict, backward: bool, what: str) -> None:
-    _took(counts["tiled"], "tiled", f"{what}'s MoDL forward")
-    if backward:
-        _took(counts["backward tiled"], "tiled", f"{what}'s MoDL backward")
-
-
 def _two_rank_check(ranks: list, one: dict, what: str) -> dict:
     """Each rank's data-parallel, ZeRO-1 and tensor-parallel step against
     the one-rank data-parallel step on all rows; the ranks' parameters
@@ -3025,7 +3170,7 @@ def _phase_parallel(root: str, smi: str) -> dict:
             counts = probe_counts()
             counts["tiled"] = dict(mdl_kernel.launches_by_path)
             counts["backward tiled"] = dict(mdl_kernel.backward_launches_by_path)
-            _check_tiled(counts, True, f"parallel (a) {kind}")
+            _check_paths(counts, f"parallel (a) {kind}", steps=True, evaluates=False)
             if kind != "plain":
                 total = totals.setdefault(kind, {})
                 for name, n in counts.items():
@@ -3064,9 +3209,10 @@ def _phase_parallel(root: str, smi: str) -> dict:
         model, cfg, images_eval, n_samples=5000, k_chunk=100, batch_size=BATCH, seed=SEED,
         mesh=mesh))
     counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path)}
-    _check_tiled(counts, False, "the sharded evaluator")
-    counts["mdl_log_prob tiled"] = counts.pop("tiled")["tiled"]
-    _only(counts, ("mdl_log_prob", "mdl_log_prob tiled"), "the sharded evaluator")
+    _check_paths(counts, "the sharded evaluator", steps=False, evaluates=True)
+    counts["mdl_log_prob direct"] = counts.pop("tiled")["direct"]
+    _only(counts, ("mdl_log_prob", "mdl_log_prob direct", "phase_shuffle"),
+          "the sharded evaluator")
     by_path["model05 sharded eval"] = counts
     report["sharded_eval_one_rank"] = {"llh": llh, "imgs_per_sec": PARALLEL_EVAL_IMAGES / seconds}
 
@@ -3082,9 +3228,12 @@ def _phase_parallel(root: str, smi: str) -> dict:
         "two ranks on one device")
     ranks = spawn_ranks(2, "gloo", os.path.join(root, "gloo2"))
     for r, out in enumerate(ranks):
-        _check_tiled(out["step_counts"], True, f"parallel (b) rank {r}'s steps")
-        _check_tiled(out["tp_counts"], True, f"parallel (b) rank {r}'s tensor-parallel step")
-        _check_tiled(out["eval_counts"], False, f"parallel (b) rank {r}'s striped evaluation")
+        _check_paths(out["step_counts"], f"parallel (b) rank {r}'s steps", steps=True,
+                     evaluates=False)
+        _check_paths(out["tp_counts"], f"parallel (b) rank {r}'s tensor-parallel step",
+                     steps=True, evaluates=False)
+        _check_paths(out["eval_counts"], f"parallel (b) rank {r}'s striped evaluation",
+                     steps=False, evaluates=True)
     report["two_process_vs_one_rank"] = _two_rank_check(ranks, one, "parallel (b)")
     tp_counts = {}
     for out in ranks:
@@ -3108,9 +3257,10 @@ def _phase_parallel(root: str, smi: str) -> dict:
         for name, n in out["eval_counts"].items():
             if isinstance(n, int):
                 striped[name] = striped.get(name, 0) + n
-        striped["mdl_log_prob tiled"] = striped.get("mdl_log_prob tiled", 0) + \
-            out["eval_counts"]["tiled"]["tiled"]
-    _only(striped, ("mdl_log_prob", "mdl_log_prob tiled"), "the striped evaluation")
+        striped["mdl_log_prob direct"] = striped.get("mdl_log_prob direct", 0) + \
+            out["eval_counts"]["tiled"]["direct"]
+    _only(striped, ("mdl_log_prob", "mdl_log_prob direct", "phase_shuffle"),
+          "the striped evaluation")
     by_path["model05 striped eval"] = striped
     report["striped_eval"] = {"per_image_bit_equal": True,
                               "rank_seconds": [out["eval_seconds"] for out in ranks],
@@ -3128,8 +3278,10 @@ def _phase_parallel(root: str, smi: str) -> dict:
         report[f"nccl_{world}_vs_one_rank"] = _two_rank_check(nccl, one,
                                                               f"parallel (b) nccl x{world}")
         for r, out in enumerate(nccl):
-            _check_tiled(out["step_counts"], True, f"parallel (b) nccl rank {r}'s steps")
-            _check_tiled(out["tp_counts"], True, f"parallel (b) nccl rank {r}'s TP step")
+            _check_paths(out["step_counts"], f"parallel (b) nccl rank {r}'s steps",
+                         steps=True, evaluates=False)
+            _check_paths(out["tp_counts"], f"parallel (b) nccl rank {r}'s TP step",
+                         steps=True, evaluates=False)
             if not np.array_equal(out["per_image"], per_image):
                 raise AssertionError(f"parallel (b): nccl rank {r}'s striped per-image LLH "
                                      "differs from one process's")
@@ -3173,11 +3325,13 @@ def _mesh_trainer(root, mesh):
     seconds = time.perf_counter() - t0
     counts = {**probe_counts(), "tiled": dict(mdl_kernel.launches_by_path),
               "backward tiled": dict(mdl_kernel.backward_launches_by_path)}
-    _check_tiled(counts, True, "the mesh trainer")
-    counts["mdl_log_prob tiled"] = counts.pop("tiled")["tiled"]
+    _check_paths(counts, "the mesh trainer", steps=True, evaluates=True)
+    forward = counts.pop("tiled")
+    counts["mdl_log_prob tiled"], counts["mdl_log_prob direct"] = forward["tiled"], \
+        forward["direct"]
     counts.pop("backward tiled")
-    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward", "mdl_log_prob tiled"),
-          "the mesh trainer")
+    _only(counts, ("mdl_log_prob", "mdl_log_prob_backward", "mdl_log_prob tiled",
+                   "mdl_log_prob direct", "phase_shuffle"), "the mesh trainer")
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if len(losses) != 20 or not np.isfinite(losses).all() or tail >= head:
         raise AssertionError(f"parallel (c): losses {losses} are not finite and falling")
@@ -3635,8 +3789,14 @@ def phase_measurement(smi: str) -> dict:
     for name in ("trace_profile", "kernel_bench", "eval_sweep kchunk", "prod_attribution"):
         if probes[name][0].get("mdl_log_prob tiled", 0) < 1:
             raise AssertionError(f"probe {name} launched no MoDL forward on the tile path")
-    for name, (counts, _) in probes.items():  # the model's heads are channels-last
-        if any(n for kernel, n in counts.items() if kernel.endswith(" direct")):
+    for name, (counts, _) in probes.items():
+        # the model's heads are channels-last, but for a float32 evaluation of
+        # model05 (perf_probe's, ablation_attribution's with its MoDL and DL
+        # heads), whose decoder takes the phase route and hands the likelihood
+        # forward an NCHW head
+        direct = {kernel for kernel, n in counts.items() if kernel.endswith(" direct") and n}
+        if not direct <= {"mdl_log_prob direct", "dl_log_prob direct"} or (
+                direct and not counts.get("phase_shuffle")):
             raise AssertionError(f"probe {name} took a direct path: {counts}")
     by_path = {"bench": bench_counts}
     by_path.update({f"probe {name}": counts for name, (counts, _) in probes.items()})
@@ -4497,8 +4657,6 @@ def eval_polyphase(smi: str) -> dict:
     decoder shapes, k = 5 and 100 at batch 128, f32 and bf16, on
     channels-last inputs as the decoder's: the largest difference, and the
     forward and forward+backward ms of both forms in turns."""
-    import torch.nn.functional as F
-
     from vae_mdl_tpu_torch.nn.encoders import ConvLayer, ConvSpec, polyphase_conv_transpose
 
     out = {}
@@ -4557,15 +4715,16 @@ def phase_eval_capture(smi: str) -> dict:
         before = launches_now()
         rows = {}
         for label, name, which, n_samples in EVAL_CAPTURE_CASES:
+            case_before = launches_now()
             rows[label] = eval_capture_case(label, name, which, n_samples, smi)
+            cfg = configs_of(name, plain=False)[which]
+            if getattr(cfg, "likelihood", None) in ("mdl", "dl"):
+                eval_launches(cfg, launched_since(case_before), f"eval capture {label}")
             torch.cuda.empty_cache()
         counts = launched_since(before)
-        for kernel in ("mdl_log_prob", "dl_log_prob"):
+        for kernel in ("mdl_log_prob", "dl_log_prob", "phase_shuffle"):
             if not counts.get(kernel):
                 raise AssertionError(f"eval capture: the main path launched no {kernel}")
-        if counts.get("mdl_log_prob direct"):
-            raise AssertionError(f"eval capture: MoDL forward launches off the tile path: "
-                                 f"{counts}")
         eval_capture_params()
         head_pad = eval_head_pad(smi)
         polyphase = eval_polyphase(smi)
@@ -4580,6 +4739,99 @@ def phase_eval_capture(smi: str) -> dict:
     say("eval capture: " + json.dumps({"configs": rows, "head_pad": head_pad,
                                        "polyphase": polyphase}))
     return counts
+
+
+# phase 21, the phase route: model05's three transposed layers (in, out, input
+# side, activation) at the 5000-IS evaluator's k-chunk of 100 samples of a
+# batch of 128, and the zoo's other routed layers and examples/custom_model.py's
+# at ROUTE_SMALL_N samples
+ROUTE_EVAL_N = 100 * BATCH
+ROUTE_LAYERS = ((128, 128, 4, "relu"), (128, 64, 8, "relu"), (64, 32, 16, "relu"))
+ROUTE_OTHER = ((64, 128, 8, "relu"), (128, 128, 4, "gelu"), (128, 64, 8, "gelu"),
+               (64, 32, 16, "gelu"), (32, 16, 8, "gelu"), (16, 30, 16, "none"))
+ROUTE_SMALL_N = 256
+ROUTE_REPS = 20
+# the route against F.conv_transpose2d: the same float32 products summed in
+# another order (TF32 off), as tests/test_torch_phase_route.py holds them
+ROUTE_RTOL = ROUTE_ATOL = 1e-5
+
+
+def _dropped(out) -> None:
+    """Nothing: ``out`` goes out of scope, and its memory back to the cache."""
+
+
+def phase_route(smi: str) -> dict:
+    """Phase 21, the phase route; see the module docstring. -> {"case": the
+    kernels line's numbers, summed over model05's three layers at
+    ``ROUTE_EVAL_N`` samples, "layers": each layer's, "max_abs_err": the
+    kernel's largest difference from its plain version}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    layers, worst = {}, 0.0
+    shapes = ([spec + (ROUTE_EVAL_N,) for spec in ROUTE_LAYERS]
+              + [spec + (ROUTE_SMALL_N,) for spec in ROUTE_OTHER])
+    for cin, f, side, act, n in shapes:
+        x = torch.randn(n, side, side, cin, device="cuda", generator=gen).permute(0, 3, 1, 2)
+        w = torch.randn(cin, f, 4, 4, device="cuda", generator=gen) * (16 * cin) ** -0.5
+        b = torch.randn(f, device="cuda", generator=gen) * 0.1
+        a = _activation(act)
+        grid = F.conv2d(x.contiguous(), phase_weight(w), padding=1)
+        before = phase_shuffle.launches
+        got = phase_shuffle.phase_shuffle_cuda(grid, b, act)
+        want = phase_shuffle.phase_shuffle_plain(grid, b, act)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        # relu and none: the same float32 add, bit for bit; gelu: erff compiled
+        # by another hand, within an ulp of |y| + 1e-7
+        same = (torch.equal(got, want) if act != "gelu" else
+                bool(((got - want).abs() <= 1e-7 + 2 ** -23 * want.abs()).all()))
+        if phase_shuffle.launches - before != 1 or not same or not got.is_contiguous():
+            raise AssertionError(f"phase route {cin}->{f} {side}x{side} {act}: the kernel "
+                                 f"against its plain version, max |diff| {err}")
+        library = a(F.conv_transpose2d(x, w, b, stride=2, padding=1))
+        route = phase_conv_transpose(x, w, b, act)
+        excess = float(((route - library).abs() - ROUTE_ATOL - ROUTE_RTOL * library.abs()).max())
+        key = f"{cin}->{f} {side}x{side} {act} N={n}"
+        row = {"max_abs_err": err, "route_max_abs_diff": float((route - library).abs().max()),
+               "route_tolerance_excess": excess}
+        if excess > 0:
+            raise AssertionError(f"phase route {key}: against F.conv_transpose2d {row}")
+        del library, route, want
+        if n == ROUTE_EVAL_N:
+            h = side
+            stacked = torch.stack([grid[:, (2 * r + c) * f:(2 * r + c + 1) * f, r:r + h, c:c + h]
+                                   for r in (0, 1) for c in (0, 1)], 2).reshape(n, 4 * f, h, h)
+            # each call's output dropped at once, so that the next call takes its
+            # block from the cache (0.4-1.7 GB a call; kept, every call would be
+            # a new device allocation)
+            fns = {"kernel": lambda: _dropped(phase_shuffle.phase_shuffle_cuda(grid, b, act)),
+                   "plain": lambda: _dropped(phase_shuffle.phase_shuffle_plain(grid, b, act)),
+                   "library": lambda: _dropped(a(F.pixel_shuffle(stacked, 2)
+                                                 + b[:, None, None]))}
+            ms = in_turns(fns, ("kernel", "plain", "library", "library", "plain", "kernel"),
+                          ROUTE_REPS)
+            layer = {"route": lambda: _dropped(phase_conv_transpose(x, w, b, act)),
+                     "conv_transpose2d": lambda: _dropped(a(F.conv_transpose2d(
+                         x, w, b, stride=2, padding=1)))}
+            layer_ms = in_turns(layer, ("route", "conv_transpose2d", "conv_transpose2d",
+                                        "route"), ROUTE_REPS)
+            # each output element written once and its grid element read once
+            bound_ms = bound(2 * distinct_bytes(got) + distinct_bytes(b))[0]
+            row.update(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                       bound_ms=bound_ms, route_ms=layer_ms["route"],
+                       conv_transpose2d_ms=layer_ms["conv_transpose2d"])
+            del stacked
+        layers[key] = row
+        del x, grid, got
+        torch.cuda.empty_cache()
+    model05 = [layers[f"{cin}->{f} {side}x{side} {act} N={ROUTE_EVAL_N}"]
+               for cin, f, side, act in ROUTE_LAYERS]
+    case = {"shape": f"model05's three transposed layers, N={ROUTE_EVAL_N}, float32 NCHW",
+            **{k: sum(row[k] for row in model05)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    say(f"phase route: the epilogue against its plain version (largest |diff| {worst}), the "
+        f"route against F.conv_transpose2d within rtol {ROUTE_RTOL}, atol {ROUTE_ATOL}; "
+        f"{json.dumps(layers)} on {smi}")
+    return {"case": case, "layers": layers, "max_abs_err": worst}
 
 
 def timed(label: str, fn, *args):
@@ -4628,6 +4880,7 @@ def main() -> None:
     by_path["capture"] = timed("compiled train step", phase_capture, smi)
     by_path["mesh capture"] = timed("mesh steps as one program", phase_mesh_capture, smi)
     by_path["eval capture"] = timed("eval as one program", phase_eval_capture, smi)
+    route = timed("phase route", phase_route, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -4639,7 +4892,8 @@ def main() -> None:
                 "launches": sum(launches.values()), "launches_by_path": launches,
                 "max_abs_err": max_abs_err, "library_ms": None, **case, **more}
 
-    modl, dl = layouts["model05"], f"{layouts['model03']} halves"
+    modl, modl_eval = layouts["model05"]["train"], layouts["model05"]["eval"]
+    dl, dl_eval = (f"{layouts['model03'][mode]} halves" for mode in ("train", "eval"))
     # the DL kernels' launches on the main paths by memory path
     dl_paths = {direction: {path: sum(counts.get(f"{kernel} {path}", 0)
                                       for counts in by_path.values())
@@ -4674,7 +4928,7 @@ def main() -> None:
 
     kernels = [
         record("mdl_log_prob", MODL_SOURCE, REPLACES, max_err,
-               fwd_cases[f"K3f/K1f eval float32 k=100 B={BATCH} {modl}"],
+               fwd_cases[f"K3f/K1f eval float32 k=100 B={BATCH} {modl_eval}"],
                model_head_device_ms=fwd_cases["model05 head f32 k=100"]["device_ms"],
                model_head_device_ms_direct=fwd_cases["model05 head f32 k=100"]["device_ms_direct"],
                measurement_shapes=measure_shapes),
@@ -4682,7 +4936,7 @@ def main() -> None:
                bwd_cases[f"K1b/K3b float32 k=5 B={BATCH} {modl}"],
                max_abs_err_bf16=bwd_err["bfloat16"], tolerance_excess=bwd_excess),
         record("dl_log_prob", DL_SOURCE, REPLACES_DL, dl_err,
-               dl_cases[f"K5 f32 k=100 B={BATCH} {dl}"],
+               dl_cases[f"K5 f32 k=100 B={BATCH} {dl_eval}"],
                launches_by_memory_path=dl_paths["forward"],
                model_head_device_ms=dl_cases["model03 head k=100"]["device_ms"],
                model_head_device_ms_direct=dl_cases["model03 head k=100"]["device_ms_direct"],
@@ -4705,6 +4959,8 @@ def main() -> None:
                    "channel-first direct", "library sum(1)"),
         null_record("forward", "dma"), null_record("forward", "staged"),
         null_record("backward", "dma"), null_record("backward", "staged"),
+        record("phase_shuffle", PHASE_SOURCE, REPLACES_PHASE, route["max_abs_err"],
+               route["case"], layers=route["layers"]),
     ]
     for entry in kernels:
         if entry["launches"] < 1:

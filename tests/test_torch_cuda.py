@@ -12,8 +12,11 @@ streamed top log-weights on the card against the CPU's; the mesh steps
 captured over NCCL at a world of one against their eager bodies; the
 evaluator's batch captured against its eager loop bit for bit (a second
 ``evaluate_llh``, ``params=`` after train steps); model05 with ``head_pad``
-through the kernels' direct path against the plain version; and the
-polyphase transposed conv against ``F.conv_transpose2d``.
+through the kernels' direct path against the plain version; the
+polyphase transposed conv against ``F.conv_transpose2d``; and the phase
+route's epilogue kernel against its plain version, the route against
+``F.conv_transpose2d``, model05's captured evaluation through it and its
+train steps off it.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -1083,13 +1086,18 @@ def test_top_lw_update_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("what", ["sampler", "reconstructor", "encoder"])
-def test_exported_programs_on_the_card_equal_live(cuda, what):
+def test_exported_programs_on_the_card_equal_live(cuda, monkeypatch, what):
     """model05's exported sampler, reconstructor and encoder, loaded onto the
     card (``load_exported``'s default), against the live functions on the
     same draws: uint8 images equal, floats within 1e-6; no likelihood
-    kernel launches."""
+    kernel launches. A traced call keeps ``F.conv_transpose2d``
+    (``takes_phase_route`` says no under ``torch.export``), so the program
+    holds ``aten`` operations only and is held to the live function with
+    the phase route off; the live decoder takes the route (3 epilogue
+    launches, none in the export)."""
     from vae_mdl_tpu_torch.models import export as mexport
     from vae_mdl_tpu_torch.models import inference
+    from vae_mdl_tpu_torch.nn import encoders
     from vae_mdl_tpu_torch.probes.kernel_structure import launch_counts, reset_counts
 
     cfg = MODELS["model05"]
@@ -1099,26 +1107,37 @@ def test_exported_programs_on_the_card_equal_live(cuda, what):
     reset_counts()
     if what == "sampler":
         blob = mexport.export_sampler(model, cfg, params, n=8)
-        live = inference.make_sampler(model, cfg)(
+        call = lambda: inference.make_sampler(model, cfg)(  # noqa: E731
             params, torch.Generator(device="cuda").manual_seed(3), 8)
-        got = mexport.load_exported(blob)(3)
-        assert got.dtype == torch.uint8 and got.is_cuda and torch.equal(got, live)
     else:
         export = (mexport.export_reconstructor if what == "reconstructor"
                   else mexport.export_encoder)
         make = (inference.make_reconstructor(model, cfg) if what == "reconstructor"
                 else inference.make_encoder_fn(model))
         blob = export(model, cfg, params, tuple(x.shape))
-        live = make(params, torch.Generator(device="cuda").manual_seed(3), x)
+        call = lambda: make(params, torch.Generator(device="cuda").manual_seed(3), x)  # noqa: E731
+    assert not any(launch_counts().values())
+    with monkeypatch.context() as m:
+        m.setattr(encoders, "takes_phase_route", lambda *args: False)
+        live = call()
+    assert not any(launch_counts().values())
+    call()  # the live decoder on the phase route
+    if what == "sampler":
+        got = mexport.load_exported(blob)(3)
+        assert got.dtype == torch.uint8 and got.is_cuda and torch.equal(got, live)
+    else:
         got = mexport.load_exported(blob)(3, x)
         for a, b in zip(*((got, live) if what == "encoder" else ((got,), (live,)))):
             assert a.is_cuda and float((a - b).abs().max()) <= 1e-6
-    assert not any(launch_counts().values())
+    routed = 0 if what == "encoder" else 3
+    assert launch_counts() == dict.fromkeys(launch_counts(), 0) | {"phase_shuffle": routed}
 
 
 def test_cli_train_and_eval_take_the_tile_path(cuda, tmp_path, monkeypatch):
     """The CLI's model05 train and eval on the card (the default device):
-    every MoDL launch, forward and backward, on the tile path."""
+    every train step's MoDL launch, forward and backward, on the tile path;
+    the validations' and the evaluation's forwards on the direct path, since
+    the phase route hands on an NCHW head at float32."""
     from vae_mdl_tpu_torch.cli.run import main
     from vae_mdl_tpu_torch.probes.kernel_structure import launch_counts, reset_counts
 
@@ -1130,9 +1149,10 @@ def test_cli_train_and_eval_take_the_tile_path(cuda, tmp_path, monkeypatch):
          + common)
     main(["eval", "model05", "--n-samples", "100"] + common)
     counts = launch_counts()
-    assert counts["mdl_log_prob"] > 0 and counts["mdl_log_prob_backward"] == 4
-    assert mdl_kernel.launches_by_path["direct"] == 0
+    assert mdl_kernel.launches_by_path["tiled"] == counts["mdl_log_prob_backward"]
+    assert mdl_kernel.launches_by_path["direct"] > 0
     assert mdl_kernel.backward_launches_by_path["direct"] == 0
+    assert counts["mdl_log_prob"] > 0 and counts["mdl_log_prob_backward"] == 4
     assert os.path.exists(tmp_path / "assets" / "model05_samples.png")
 
 
@@ -1436,3 +1456,139 @@ def test_polyphase_equals_conv_transpose2d_on_the_card(cuda, cin, cout, side, dt
     else:
         bound = 1e-5 + 2 ** -7 * (want.abs() + layer.bias.abs()[:, None, None])
     assert bool(((got - want).abs() <= bound).all())
+
+
+# -- the phase route: a 2x2 conv over the four phases and the epilogue kernel --------
+
+# (in, out, input side, activation): every kernel-4 stride-2 transposed layer of
+# the zoo (tests/test_torch_phase_route.py zoo_shapes) and of examples/custom_model.py
+_PHASE_SHAPES = [(128, 128, 4, "relu"), (128, 64, 8, "relu"), (64, 32, 16, "relu"),
+                 (64, 128, 8, "relu"), (128, 6, 16, "none"), (128, 128, 4, "gelu"),
+                 (128, 64, 8, "gelu"), (64, 32, 16, "gelu"), (32, 16, 8, "gelu"),
+                 (16, 30, 16, "none")]
+
+
+@pytest.mark.parametrize("cin,f,side,act", _PHASE_SHAPES)
+def test_phase_shuffle_kernel_matches_its_plain_version(cuda, cin, f, side, act):
+    """The epilogue kernel against its plain version on the card, on the
+    NCHW float32 grid the route's 2x2 conv writes: the same add and
+    activation in the same rounding, exact for relu and none; gelu within
+    one ulp on |y| + 1e-6 (the same libdevice erff, compiled by another
+    hand). The output is contiguous; each launch is counted."""
+    from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
+
+    gen = torch.Generator(cuda).manual_seed(cin + f)
+    grid = torch.randn(64, 4 * f, side + 1, side + 1, device=cuda, generator=gen) * 3
+    bias = torch.randn(f, device=cuda, generator=gen)
+    before = phase_shuffle.launches
+    got = phase_shuffle.phase_shuffle(grid, bias, act)
+    want = phase_shuffle.phase_shuffle_plain(grid, bias, act)
+    torch.cuda.synchronize()
+    assert phase_shuffle.launches - before == 1
+    assert got.shape == (64, f, 2 * side, 2 * side) and got.is_contiguous()
+    if act == "gelu":
+        assert bool(((got - want).abs() <= 1e-6 + 2 ** -23 * want.abs()).all())
+    else:
+        assert torch.equal(got, want)
+
+
+def test_phase_shuffle_kernel_refuses_what_it_does_not_take(cuda):
+    from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
+
+    grid, bias = torch.zeros(2, 8, 3, 3, device=cuda), torch.zeros(2, device=cuda)
+    with pytest.raises(TypeError):
+        phase_shuffle.phase_shuffle_cuda(grid.bfloat16(), bias.bfloat16(), "relu")
+    with pytest.raises(ValueError):
+        phase_shuffle.phase_shuffle_cuda(grid, bias.cpu(), "relu")
+    with pytest.raises(ValueError):
+        phase_shuffle.phase_shuffle_cuda(grid, bias, "tanh")
+    with pytest.raises(ValueError, match="contiguous"):
+        phase_shuffle.phase_shuffle_cuda(grid.contiguous(memory_format=torch.channels_last),
+                                         bias, "relu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,f,side,act", _PHASE_SHAPES)
+def test_phase_route_equals_conv_transpose2d_on_the_card(cuda, deterministic, cin, f, side,
+                                                         act, dtype):
+    """A transposed ``ConvLayer`` of 8 output channels or more on the card
+    at float32 outside autograd takes the route (one epilogue launch;
+    model04's 6-channel head none) and equals ``F.conv_transpose2d`` and its
+    activation within 1e-5 + 1e-5 |y| (TF32 off; the same products summed in
+    another order), its output NCHW. At bf16, and with autograd recording,
+    the layer is the library's call, bit for bit under cuDNN's
+    deterministic algorithms, and launches nothing."""
+    import torch.nn.functional as F
+
+    from vae_mdl_tpu_torch.nn.blocks import _activation
+    from vae_mdl_tpu_torch.nn.encoders import ConvLayer, ConvSpec
+    from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
+
+    gen = torch.Generator().manual_seed(side)
+    layer = ConvLayer(ConvSpec(f, 4, 2, True, act), cin, gen).to(cuda)
+    with torch.no_grad():
+        layer.bias.normal_()
+    x = torch.randn(256, side, side, cin, generator=gen).to(cuda).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+        want = _activation(act)(F.conv_transpose2d(x.to(dtype), w, b, stride=2, padding=1))
+    before = phase_shuffle.launches
+    with torch.no_grad():
+        got = layer(x, dtype)
+    routed = int(f >= 8 and dtype == torch.float32)
+    assert phase_shuffle.launches - before == routed
+    recorded = layer(x, dtype)
+    assert phase_shuffle.launches - before == routed and recorded.grad_fn is not None
+    assert torch.equal(recorded, want)
+    if not routed:
+        assert torch.equal(got, want)
+        return
+    assert got.is_contiguous()
+    excess = (got - want).abs() - (1e-5 + 1e-5 * want.abs())
+    worst = int(excess.argmax())
+    assert float(excess.max()) <= 0, (float(got.flatten()[worst]), float(want.flatten()[worst]))
+
+
+def test_captured_model05_evaluation_takes_the_phase_route(cuda, deterministic):
+    """model05's float32 5000-IS batch (k-chunks of 100): the capturing call
+    and a replay equal the eager loop bit for bit, and each batch launches
+    the epilogue 3 layers x 50 chunks = 150 times."""
+    from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
+
+    model, cfg, _, batch = _eval_inputs("model05", 8, cuda)
+    evaluator = make_batch_evaluator(model, cfg, 5000, 100)
+    for seed in (5, 6):
+        before = phase_shuffle.launches
+        want = evaluator.eager(batch, torch.Generator(cuda).manual_seed(seed))
+        assert phase_shuffle.launches - before == 150
+        before = phase_shuffle.launches
+        got = evaluator(batch, torch.Generator(cuda).manual_seed(seed))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        # the capturing call's warm-up runs one chunk: 3 launches more
+        assert phase_shuffle.launches - before == 150 + (3 if seed == 5 else 0)
+    assert evaluator.cache_size() == 1
+
+
+def test_model05_train_steps_leave_the_phase_route(cuda):
+    """model05's train step, captured and eager: autograd records the
+    decoder, so its transposed convs stay on ``F.conv_transpose2d`` and the
+    epilogue launches nothing."""
+    from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
+    from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
+    from vae_mdl_tpu_torch.train.steps import make_train_step
+
+    cfg = experiment("model05")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=16))
+    model = build_model(cfg.model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg.train)
+    step = make_train_step(model, cfg, make_optimizer(cfg.train))
+    batch = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (16, 32, 32, 3),
+                                                              dtype=np.uint8), device=cuda)
+    phase_shuffle.launches = 0
+    state, _ = step.eager(state, batch)
+    for _ in range(3):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert state.step == 4 and bool(torch.isfinite(metrics["loss"]))
+    assert phase_shuffle.launches == 0

@@ -174,7 +174,11 @@ class ConvDecoder(nn.Module):
     through its strides. On a card that memory is channels-last: the NHWC
     grid viewed as NCHW is a channels-last tensor, and cuDNN keeps a
     channels-last input's format through the stack, so the view is
-    NHWC-contiguous there.
+    NHWC-contiguous there. The one exception: a float32 call that autograd
+    does not record, whose kernel-4 stride-2 transposed layers take the
+    phase route (``encoders.takes_phase_route``), runs them and the layers
+    after them NCHW, the format cuDNN's float32 convs run in, and hands on
+    an NCHW head.
     """
 
     def __init__(self, conv_specs: Sequence[ConvSpec], n_latent: int,

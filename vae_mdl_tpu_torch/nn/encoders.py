@@ -16,6 +16,13 @@ Flax's ``padding="SAME"`` is reproduced exactly:
   ``torch.nn.functional.conv_transpose2d`` correlates with the flipped kernel,
   so a transposed layer stores the Flax kernel spatially flipped, as
   ``[in, out, kh, kw]`` (``utils/convert.py``).
+
+The phase route: on the card, a float32 kernel-4 stride-2 transposed layer
+that autograd does not record runs as one 2x2 conv over its four output
+phases plus a hand-written epilogue (``phase_conv_transpose``, chosen by
+``takes_phase_route``), where ``F.conv_transpose2d`` would take cuDNN's
+transposed-conv (dgrad) kernels, which on an H100 run float32 at half the
+rate of its forward convs.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from torch import nn
 from vae_mdl_tpu_torch.distributions import Normal
 from vae_mdl_tpu_torch.distributions.continuous import softplus
 from vae_mdl_tpu_torch.nn.blocks import GLU, Dense, MLPBlock, _activation, glorot_uniform_
+from vae_mdl_tpu_torch.ops.cuda import phase_shuffle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +92,10 @@ class ConvLayer(nn.Module):
         s = self.spec
         x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
         if s.transpose:
+            records = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                                   or b.requires_grad)
+            if takes_phase_route(s, x.device.type, dtype, records):
+                return phase_conv_transpose(x, w, b, s.activation)
             y = F.conv_transpose2d(x, w, b, stride=s.stride, padding=self._padding,
                                    output_padding=self._output_padding)
         else:
@@ -94,6 +106,66 @@ class ConvLayer(nn.Module):
             else:
                 y = F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, stride=s.stride)
         return _activation(s.activation)(y)
+
+
+# the narrowest transposed layer the phase route takes. The zoo's one layer
+# below it, model04's 6-channel head, lost on the route to the transposed
+# conv alone on an H100 (its 2x2 conv, 24 channels wide, ran float32 at a
+# third of the card's peak) and gained nothing in model04's decoder
+PHASE_MIN_FEATURES = 8
+
+
+def takes_phase_route(spec: ConvSpec, device_type: str, dtype: torch.dtype,
+                      records: bool) -> bool:
+    """Whether a transposed layer of ``spec`` runs as ``phase_conv_transpose``:
+    kernel 4, stride 2, at least ``PHASE_MIN_FEATURES`` output channels, an
+    activation the epilogue has; on the card (``device_type``), at float32,
+    in a call that autograd does not record (``records``: grad mode on and
+    an operand that requires grad; the backward stays on
+    ``F.conv_transpose2d``) and that ``torch.export`` or ``torch.compile``
+    does not trace (``torch.compiler.is_compiling()``: a traced program
+    keeps ``F.conv_transpose2d``, ``aten`` operations only). bf16 stays on
+    ``F.conv_transpose2d``, whose bf16 kernels run on the tensor cores."""
+    return (spec.transpose and (spec.kernel, spec.stride) == (4, 2)
+            and spec.features >= PHASE_MIN_FEATURES
+            and spec.activation in phase_shuffle.ACTIVATIONS and device_type == "cuda"
+            and dtype == torch.float32 and not records
+            and not torch.compiler.is_compiling())
+
+
+def phase_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A kernel-4 stride-2 transposed conv's weight (``[in, out, 4, 4]``,
+    spatially flipped against Flax, as ``ConvLayer`` stores it) as the 2x2
+    conv's contiguous ``[4 * out, in, 2, 2]`` whose output channel
+    ``(2r + c) * out + o`` is output channel ``o`` at phase ``(r, c)``.
+    Phase r of a row reads input rows ``i + r - 1`` and ``i + r`` (window
+    taps t = 0, 1) with the Flax kernel's taps ``2t + r``
+    (``polyphase_conv_transpose``'s formula), so the unflipped kernel's
+    4-tap axes split into (t, r) and (u, c), and one copy places them."""
+    c_in, f = weight.shape[:2]
+    taps = weight.flip(2, 3).reshape(c_in, f, 2, 2, 2, 2)  # [in, out, t, r, u, c]
+    return taps.permute(3, 5, 1, 0, 2, 4).reshape(4 * f, c_in, 2, 2)
+
+
+def phase_conv_transpose(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         activation: str = "none") -> torch.Tensor:
+    """``act(flax.linen.ConvTranspose(kernel 4, stride 2, SAME))`` on float32
+    NCHW ``x`` ``[N, in, H, W]``: one stride-1 2x2 conv with padding 1
+    computes the four output phases of every channel on the (H+1) x (W+1)
+    grid (``phase_weight``), phase ``(r, c)`` the H x W window at offset
+    ``(r, c)``; the epilogue (``ops/cuda/phase_shuffle.py``: the kernel on
+    the card, its plain version on the CPU) interleaves the windows into
+    ``[N, out, 2H, 2W]``, adds the bias and applies the activation. The
+    grid's border is the only extra work: (H+1)(W+1) / HW of the transposed
+    conv's multiply-adds.
+
+    Memory format: ``x`` is made contiguous (NCHW) first, and the grid and
+    the output are NCHW. cuDNN's float32 convs on an H100 run NCHW kernels,
+    so a channels-last conv pays a layout conversion of its input and of its
+    output, and their workspace; from NCHW the grid, the output and the next
+    layer's conv need none."""
+    grid = F.conv2d(x.contiguous(), phase_weight(weight), padding=1)
+    return phase_shuffle.phase_shuffle(grid, bias, activation)
 
 
 def use_polyphase_deconv() -> bool:

@@ -105,13 +105,15 @@ def cuda_counts(branches: Dict[str, int], pixels: int, n_mix: int, backward: boo
 
 def head_parameters(cfg, batch: torch.Tensor, n_samples: int):
     """model05's head output on ``batch`` at initialisation: (x in [0, 1],
-    the MoDL parameters ``[k, B, H, W, 10n]`` as the decoder hands them on)."""
+    the MoDL parameters ``[k, B, H, W, 10n]`` NHWC-contiguous, as a train
+    step's decoder hands them on; a float32 forward-only decoder takes the
+    phase route, ``nn/encoders.py``, and hands them on NCHW)."""
     model = build_model(cfg.model, torch.Generator().manual_seed(cfg.train.seed),
                         batch.device)
     x = batch.float() / 255.0
     with torch.no_grad():
         _, _, pxz = model(x, n_samples, generator=torch.Generator(batch.device).manual_seed(0))
-    return x, pxz.dist.parameters
+    return x, pxz.dist.parameters.contiguous()
 
 
 def kernel_device_ms(fn: Callable[[], object], reps: int = 10) -> Dict[str, float]:
