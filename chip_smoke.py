@@ -10,9 +10,10 @@ and nothing falls back to a plain version.
 
 1. device: prints ``nvidia-smi``'s name and power limit; needs CUDA and a
    card whose published peaks ``utils/flops.py`` knows;
-2. build: compiles the five sources under ``vae_mdl_tpu_torch/csrc/``
+2. build: compiles the six sources under ``vae_mdl_tpu_torch/csrc/``
    (``mdl_log_prob.cu``, ``dl_log_prob.cu``, ``sfu_probe.cu``,
-   ``io_probe.cu``, ``phase_shuffle.cu``) with nvcc, all at once, and prints
+   ``io_probe.cu``, ``phase_shuffle.cu``, ``block_epilogue.cu``) with nvcc,
+   all at once, and prints
    ptxas's registers and spills of the kernels the paths launch; then reads
    off the strides in which layout model05's and model03's heads hand their
    output to the likelihood kernels in a train step (channels-last) and in
@@ -141,10 +142,16 @@ and nothing falls back to a plain version.
 12. the ladder families, ``ladder_svhn`` and ``biladder_svhn`` (float32) and
    ``biladder_celeba`` (its bf16 body), each at full width with seeded
    weights and seeded uint8 images of its shape: one train step's loss and
-   every gradient leaf through the DL kernels against the plain version
-   (rezero gates opened; phase 9's tolerances, but ``GRAD_RTOL_BF16`` for
-   the gradients of biladder_celeba's bf16 body, which is also held to
-   phase 9's with a float32 body); the main paths with
+   every gradient leaf through the DL kernels against the plain version,
+   the body on the epilogue route on both sides (rezero gates opened;
+   phase 9's tolerances, but ``GRAD_RTOL_BF16`` for the gradients of
+   biladder_celeba's bf16 body, which is also held to phase 9's with a
+   float32 body); each ladder's float32 body with the route on against the
+   plain body (``epilogue_route_off``: the bias adds, activations, gate
+   products and residual sums as PyTorch operations), the loss within
+   ``SUM_RTOL`` and each leaf's gradient gap over the larger of its norm
+   and the median leaf's within ``GRAD_RTOL`` (``phase_route_step_check``:
+   the rezero gates' gradients are sums that cancel); the main paths with
    every count set to 0 just before and read just after: the
    5000-importance-sample evaluation (k-chunks of 100, 128 images; 32 for
    biladder_celeba) timed with CUDA events, with a 200-sample evaluation
@@ -397,6 +404,24 @@ and nothing falls back to a plain version.
    route against ``F.conv_transpose2d`` in turns. Its record in the kernels
    line sums model05's three layers (``layers`` holds each) and counts the
    main paths' launches.
+22. the block epilogue (``ops/cuda/block_epilogue.py``, the ladders'
+   residual blocks): at ``EPILOGUE_CASES`` (biladder_celeba's obs_up blocks
+   at 640 x 64 x 64 x 64 and enc_0's at 128 x 64 x 64 x 64, bf16;
+   ladder_svhn's obs_up at 640 x 48 x 32 x 32, float32), after an inner
+   conv and after the last (residual, shortcut bias and gate), the forward
+   and the backward kernel against their plain versions (values and
+   ``c``'s gradient within one rounding of the dtype, the bias, shortcut
+   bias and gate sums within 1e-5 of their terms' magnitudes), one forward
+   and two backward launches a call, each output channels-last; the
+   kernel, its plain version and ``library_ms`` (the plain body's chain at
+   the compute dtype: bias add, gelu, gate product and residual sum; and
+   backward gelu's gradient and the bias, shortcut bias and gate sums) in
+   turns, beside the bound: its passes over the activation (forward 2, or
+   3 with the residual; backward 3) over 3.35 TB/s. Its two records in the
+   kernels line (``block_epilogue``, ``block_epilogue_backward``) give
+   obs_up's inner case, ``cases`` every case, and count the main paths'
+   launches (the ladders' evaluations and train steps, the captured
+   windows).
 
 Each phase prints the seconds it took. The last three lines: the kernels'
 JSON record, the card's name and power limit, and ``{"ok": true, "device":
@@ -478,10 +503,12 @@ from vae_mdl_tpu_torch.data.pipeline import iterators_from_splits, make_splits
 from vae_mdl_tpu_torch.models.export import load_exported
 from vae_mdl_tpu_torch.models.inference import make_encoder_fn, make_reconstructor, make_sampler
 from vae_mdl_tpu_torch.models.zoo import MODELS, experiment
+from vae_mdl_tpu_torch.nn import blocks as nn_blocks
 from vae_mdl_tpu_torch.nn import encoders
-from vae_mdl_tpu_torch.nn.blocks import _activation
+from vae_mdl_tpu_torch.nn.blocks import DTYPES, _activation
 from vae_mdl_tpu_torch.nn.encoders import ConvSpec, phase_conv_transpose, phase_weight
 from vae_mdl_tpu_torch.ops.cuda import (
+    block_epilogue,
     build,
     dl_kernel,
     io_probe,
@@ -592,6 +619,13 @@ IO_SOURCE = "vae_mdl_tpu_torch/csrc/io_probe.cu"
 PHASE_SOURCE = "vae_mdl_tpu_torch/csrc/phase_shuffle.cu"
 REPLACES_PHASE = ("none: the port's own, for cuDNN's float32 transposed conv (the JAX package "
                   "leaves its transposed convs to XLA)")
+EPILOGUE_SOURCE = "vae_mdl_tpu_torch/csrc/block_epilogue.cu"
+REPLACES_EPILOGUE = ("none: the port's own, for the residual blocks' bias, gelu, gate and residual "
+                     "sum after cuDNN's convs (the JAX package leaves them to XLA, which fuses "
+                     "them)")
+# the kernels line's case of the block epilogue: obs_up's inner conv (three of a
+# block's four), its other cases under "cases"
+EPILOGUE_RECORD_CASE = f"biladder_celeba obs_up inner {5 * BATCH}x64x64x64 bfloat16"
 REPLACES_K6 = "vae_mdl_tpu/ops/pallas/vpu_probe.py:57"
 REPLACES_P1 = "scripts/kernel_isolate.py:31"
 REPLACES_P2 = "scripts/kernel_isolate2.py:29"
@@ -699,7 +733,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     sources = [mdl_kernel.SOURCE, dl_kernel.SOURCE, sfu_probe.SOURCE, io_probe.SOURCE,
-               phase_shuffle.SOURCE]
+               phase_shuffle.SOURCE, block_epilogue.SOURCE]
     fresh = [not build.library_path(source).exists() for source in sources]
     t0 = time.perf_counter()
     libs = build.build_all(sources)  # one nvcc per source, started together
@@ -709,12 +743,12 @@ def phase_build() -> None:
     say(f"build: {seconds:.1f} s for the {len(sources)} sources")
     # the instantiations the paths launch: MoDL at n_mix = 5, the DL kernels'
     # direct path at four merged dimensions with 32-bit indices and their
-    # tile path, the probe at the default chains, every kernel of io_probe.cu
-    # and of phase_shuffle.cu
+    # tile path, the probe at the default chains, every kernel of io_probe.cu,
+    # of phase_shuffle.cu and of block_epilogue.cu
     wanted = (("Li5E",), ("IjLi4E", "kernel_tiled"), (f"Li{sfu_probe.DEFAULT_CHAINS}EE",),
-              ("",), ("",))
-    for lib, family, want in zip(libs, ("MoDL n_mix=5", "DL", "probe", "io", "phase"),
-                                 wanted):
+              ("",), ("",), ("",))
+    for lib, family, want in zip(libs, ("MoDL n_mix=5", "DL", "probe", "io", "phase",
+                                        "block epilogue"), wanted):
         lines = lib.with_suffix(".log").read_text().splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and any(w in line for w in want):
@@ -1961,7 +1995,9 @@ def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> N
     """One train step of the model in its config (float32; biladder_celeba
     bf16) or in ``compute_dtype``, through the kernels and through the plain
     version, from one state, batch and noise: the loss and each parameter's
-    gradient, then the whole step. A ladder's rezero gates are opened first
+    gradient, then the whole step; a ladder's body takes the epilogue route
+    on both sides (``phase_route_step_check`` holds the route to the plain
+    body). A ladder's rezero gates are opened first
     (``open_gates``), so that every leaf has a gradient to compare, and its
     train step does not flip the images (biladder_celeba's experiment
     would), so that the step sees the batch the loss saw. ``base`` stands
@@ -1982,7 +2018,8 @@ def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> N
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, augment_flip=False))
         model = open_gates(seeded_model(cfg.model))
         state = create_train_state(model, cfg.train)
-        before = kernels.launches, kernels.backward_launches
+        before = (kernels.launches, kernels.backward_launches, block_epilogue.launches,
+                  block_epilogue.backward_launches)
         loss_fn = training_loss_fn(model, cfg, prior_for(cfg.model, "cuda"), x,
                                    cfg.model.n_samples, eps=eps)
         loss, _ = loss_fn(state.params)
@@ -1992,10 +2029,12 @@ def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> N
         torch.cuda.synchronize()
         results[which] = (float(loss.detach()), dict(zip(state.params, grads)),
                           float(metrics["loss"]), kernels.launches - before[0],
-                          kernels.backward_launches - before[1])
+                          kernels.backward_launches - before[1],
+                          block_epilogue.launches - before[2],
+                          block_epilogue.backward_launches - before[3])
     torch.backends.cudnn.deterministic = deterministic
-    loss_k, grads_k, step_k, fwd_k, bwd_k = results["kernel"]
-    loss_p, grads_p, step_p, fwd_p, bwd_p = results["plain"]
+    loss_k, grads_k, step_k, fwd_k, bwd_k, epi_k, epi_bwd_k = results["kernel"]
+    loss_p, grads_p, step_p, fwd_p, bwd_p, epi_p, epi_bwd_p = results["plain"]
     rel = {leaf: float((grads_k[leaf] - grads_p[leaf]).norm()
                        / grads_p[leaf].norm().clamp_min(1e-30)) for leaf in grads_p}
     leaf = max(rel, key=rel.get)
@@ -2003,7 +2042,8 @@ def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> N
         f"{loss_k:.6f}, "
         f"plain {loss_p:.6f} (step {step_k:.6f} / {step_p:.6f}); max norm-relative gradient "
         f"diff {rel[leaf]:.3e} ({leaf}, of {len(rel)} leaves); kernel launches forward "
-        f"{fwd_k}/{fwd_p}, backward {bwd_k}/{bwd_p}")
+        f"{fwd_k}/{fwd_p}, backward {bwd_k}/{bwd_p}; epilogue launches forward "
+        f"{epi_k}/{epi_p}, backward {epi_bwd_k}/{epi_bwd_p}")
     for a, b in ((loss_k, loss_p), (step_k, step_p), (loss_k, step_k)):
         if not np.isfinite(a) or abs(a - b) > SUM_RTOL * abs(b):
             raise AssertionError(f"{name} train step: kernel and plain losses disagree")
@@ -2012,6 +2052,64 @@ def phase_train_step_check(name: str, compute_dtype: str = None, base=None) -> N
     if fwd_k < 1 or bwd_k < 1 or fwd_p != 0 or bwd_p != 0:
         raise AssertionError(f"{name} train step: kernels launched {fwd_k}+{bwd_k} times, "
                              f"plain path {fwd_p}+{bwd_p}")
+    ladder = name in LADDERS
+    if any((n >= 1) != ladder for n in (epi_k, epi_bwd_k, epi_p, epi_bwd_p)):
+        raise AssertionError(f"{name} train step: epilogue kernels launched {epi_k}+{epi_bwd_k} "
+                             f"times, plain path {epi_p}+{epi_bwd_p}")
+
+
+def phase_route_step_check(name: str) -> None:
+    """A ladder's loss and gradients in a float32 body with the epilogue
+    route on and off (``epilogue_route_off``: the plain body), from one
+    state, batch and noise, the likelihood through the kernels on both
+    sides: the loss within ``SUM_RTOL``; each leaf's gradient gap, over the
+    larger of its own norm and the median leaf's (the benchmark's
+    ``grad_gap``), within ``GRAD_RTOL``; the epilogue kernels launched on
+    the route alone. The median's floor is for the rezero gates: each
+    gate's gradient is one sum over every pixel and channel of a block that
+    cancels, so a few float32 ulps of its terms, added in another order,
+    move it by more than ``GRAD_RTOL`` of its own size (4.4e-4 on
+    ladder_svhn's ``dec_1`` gate on an H100)."""
+    base = dataclasses.replace(MODELS[name], compute_dtype="float32")
+    x = torch.as_tensor(images(BATCH, base.image_shape), device="cuda").float() / 255.0
+    eps = seeded_noise(base)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same conv algorithms in both runs
+    results = {}
+    for route in (True, False):
+        cfg = experiment(name, model=base)
+        model = open_gates(seeded_model(cfg.model))
+        params = dict(model.named_parameters())
+        before = block_epilogue.launches, block_epilogue.backward_launches
+        with contextlib.nullcontext() if route else epilogue_route_off():
+            loss, _ = training_loss_fn(model, cfg, prior_for(cfg.model, "cuda"), x,
+                                       cfg.model.n_samples, eps=eps)(params)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        results[route] = (float(loss.detach()), dict(zip(params, grads)),
+                          block_epilogue.launches - before[0],
+                          block_epilogue.backward_launches - before[1])
+    torch.backends.cudnn.deterministic = deterministic
+    (loss_on, grads_on, fwd_on, bwd_on), (loss_off, grads_off, fwd_off, bwd_off) = (
+        results[True], results[False])
+    norms = {leaf: float(g.norm()) for leaf, g in grads_off.items()}
+    median = float(np.median(list(norms.values())))
+    diffs = {leaf: float((grads_on[leaf] - grads_off[leaf]).norm()) for leaf in grads_off}
+    gap = {leaf: d / max(norms[leaf], median) for leaf, d in diffs.items()}
+    rel = {leaf: d / max(norms[leaf], 1e-30) for leaf, d in diffs.items()}
+    leaf, own = max(gap, key=gap.get), max(rel, key=rel.get)
+    say(f"{name} float32 route on / off k={base.n_samples} B={BATCH}: loss {loss_on:.6f} / "
+        f"{loss_off:.6f}; largest gradient gap {gap[leaf]:.3e} ({leaf}, of {len(gap)} leaves, "
+        f"median leaf norm {median:.4e}); largest over a leaf's own norm {rel[own]:.3e} ({own}, "
+        f"norm {norms[own]:.4e}); epilogue launches forward {fwd_on}/{fwd_off}, backward "
+        f"{bwd_on}/{bwd_off}")
+    if not np.isfinite(loss_on) or abs(loss_on - loss_off) > SUM_RTOL * abs(loss_off):
+        raise AssertionError(f"{name} route step: the route's loss and the plain body's disagree")
+    if not np.isfinite(gap[leaf]) or gap[leaf] > GRAD_RTOL:
+        raise AssertionError(f"{name} route step: {leaf} gradients differ beyond tolerance")
+    if fwd_on < 1 or bwd_on < 1 or fwd_off or bwd_off:
+        raise AssertionError(f"{name} route step: epilogue kernels launched {fwd_on}+{bwd_on} "
+                             f"times, plain body {fwd_off}+{bwd_off}")
 
 
 def configs_of(name: str, plain: bool) -> dict:
@@ -2230,11 +2328,14 @@ def main_path(name: str, path: str, smi: str) -> dict:
     say(f"{name} {path} main path: kernel launches {counts}")
     own = "mdl_log_prob" if MODELS[name].likelihood == "mdl" else "dl_log_prob"
     # an evaluation's float32 config takes the phase route where its decoder
-    # has a layer for it (phase_eval checks each config's paths)
+    # has a layer for it (phase_eval checks each config's paths); a ladder's
+    # residual blocks take the epilogue route (nn/blocks.py takes_epilogue_route)
     routed = path == "eval" and any(routed_layers(cfg)
                                     for cfg in configs_of(name, plain=False).values())
+    epilogues = (["block_epilogue"] + (["block_epilogue_backward"] if path == "train" else [])
+                 if name in LADDERS else [])
     _only(counts, [own] + ([f"{own}_backward"] if path == "train" else [])
-          + (["phase_shuffle"] if routed else []), f"the {name} {path} path")
+          + (["phase_shuffle"] if routed else []) + epilogues, f"the {name} {path} path")
     if own == "mdl_log_prob":
         say(f"{name} {path} main path: MoDL forward launches by memory path "
             f"{mdl_kernel.launches_by_path}")
@@ -2277,6 +2378,7 @@ def phase_ladders(smi: str):
         phase_train_step_check(name)
         if MODELS[name].compute_dtype != "float32":  # the same model, float32 body
             phase_train_step_check(name, "float32")
+        phase_route_step_check(name)
         for path in ("eval", "train"):
             by_path[f"{name} {path}"] = main_path(name, path, smi)
         phase_profile(name)
@@ -2605,6 +2707,19 @@ def route_off():
         yield
     finally:
         encoders.takes_phase_route = rule
+
+
+@contextlib.contextmanager
+def epilogue_route_off():
+    """Within the block no residual block takes the epilogue route
+    (``EPILOGUE_DTYPES`` emptied): the plain body, each bias add,
+    activation, gate product and residual sum a PyTorch operation."""
+    kept = nn_blocks.EPILOGUE_DTYPES
+    nn_blocks.EPILOGUE_DTYPES = ()
+    try:
+        yield
+    finally:
+        nn_blocks.EPILOGUE_DTYPES = kept
 
 
 def launched_since(before: dict) -> dict:
@@ -4834,6 +4949,144 @@ def phase_route(smi: str) -> dict:
     return {"case": case, "layers": layers, "max_abs_err": worst}
 
 
+# phase 22, the block epilogue: (model, block, N, C, side) at the train step's
+# shapes: biladder_celeba's obs_up blocks (k = 5 samples of a batch of 128) and
+# enc_0's (the batch), its bf16 body; ladder_svhn's obs_up, float32
+EPILOGUE_CASES = (("biladder_celeba", "obs_up", 5 * BATCH, 64, 64),
+                  ("biladder_celeba", "enc_0", BATCH, 64, 64),
+                  ("ladder_svhn", "obs_up", 5 * BATCH, 48, 32))
+EPILOGUE_REPS = 20
+
+
+def _within_one_rounding(got, want, scale=None) -> float:
+    """The largest |got - want| less its tolerance (at most 0 passes): one
+    ulp of ``got``'s dtype (2^-7 of |want| at bf16, 2^-22 at float32) plus
+    1e-6, and 1e-6 of ``scale`` where given (``c``'s gradient, whose two
+    terms cancel near the activation's zero; PyTorch's gelu_backward
+    contracts mul+add, the kernel does not), as the card tests hold them."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -22
+    tol = 1e-6 + ulp * want.float().abs()
+    if scale is not None:
+        tol = tol + 1e-6 * scale
+    return float(((got.float() - want.float()).abs() - tol).max())
+
+
+def _library_epilogue(c, bias, act, residual, s_bias, gate):
+    """The plain body's chain after a conv at the compute dtype: the bias
+    add, the activation, and for the last conv the gate's product and the
+    residual sum (the shortcut's bias added to its output)."""
+    a = _activation(act)(c + bias.to(c.dtype)[:, None, None])
+    if residual is None:
+        return a
+    return (residual + s_bias.to(c.dtype)[:, None, None]) + a * gate.to(c.dtype)
+
+
+def _library_epilogue_backward(grad, y, a, act, gate):
+    """Its backward at the compute dtype on the saved ``y = c + b`` and
+    ``a = act(y)``: the activation's gradient and the bias sum, and for the
+    last conv the gate's product and sum and the shortcut bias's sum."""
+    approximate = "tanh" if act == "gelu_tanh" else "none"
+    if gate is None:
+        gy = torch.ops.aten.gelu_backward(grad, y, approximate=approximate)
+        return gy, gy.sum((0, 2, 3))
+    gy = torch.ops.aten.gelu_backward(grad * gate.to(grad.dtype), y, approximate=approximate)
+    return gy, gy.sum((0, 2, 3)), grad.sum((0, 2, 3)), (grad * a).sum()
+
+
+def phase_block_epilogue(smi: str) -> dict:
+    """Phase 22, the block epilogue (``ops/cuda/block_epilogue.py``) at
+    ``EPILOGUE_CASES``: each kernel, forward and backward, after an inner
+    conv and after the last (the residual, the shortcut bias and the gate),
+    against its plain version (values and ``c``'s gradient within one
+    rounding, the sums within 1e-5 of their terms' magnitudes), one forward
+    and two backward launches a call; the kernel, its plain version and the
+    library chain it replaces (``_library_epilogue``, its backward) timed in
+    turns, beside the bound: the passes over the activation (forward 2, or
+    3 with the residual; backward 3: grad and c read, grad_c written) over
+    the card's bytes a second. -> {"forward": {case: row}, "backward":
+    {case: row}, "max_abs_err": the largest |kernel - plain| of the
+    values and gradients}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rows = {"forward": {}, "backward": {}}
+    worst = 0.0
+    for name, block, n, c, side in EPILOGUE_CASES:
+        cfg = MODELS[name]
+        dtype, act = DTYPES[cfg.compute_dtype], cfg.activation
+
+        def act_map():
+            return torch.randn(n, side, side, c, device="cuda", generator=gen).mul(2).to(
+                dtype).permute(0, 3, 1, 2)
+
+        conv, grad = act_map(), act_map()
+        bias = torch.randn(c, device="cuda", generator=gen) * 0.1
+        y = conv + bias.to(dtype)[:, None, None]
+        a = _activation(act)(y)
+        for kind in ("inner", "last"):
+            last = kind == "last"
+            residual = act_map() if last else None
+            s_bias = torch.randn(c, device="cuda", generator=gen) * 0.1 if last else None
+            gate = torch.tensor(0.3, device="cuda") if last else None
+            parts = (residual, s_bias, gate)
+            key = f"{name} {block} {kind} {n}x{c}x{side}x{side} {dtype_name(dtype)}"
+            before = block_epilogue.launches, block_epilogue.backward_launches
+            got = block_epilogue.epilogue_cuda(conv, bias, act, *parts)
+            got_grads = block_epilogue.epilogue_backward_cuda(grad, conv, bias, act, gate, last)
+            torch.cuda.synchronize()
+            launched = (block_epilogue.launches - before[0],
+                        block_epilogue.backward_launches - before[1])
+            want = block_epilogue.epilogue_plain(conv, bias, act, *parts)
+            want_grads = block_epilogue.epilogue_backward_plain(grad, conv, bias, act, gate, last)
+            scaled = grad.float().abs() * (1.0 if gate is None else abs(float(gate)))
+            excess = {"forward": _within_one_rounding(got, want),
+                      "backward": _within_one_rounding(got_grads[0], want_grads[0], scaled)}
+            err = max(float((got.float() - want.float()).abs().max()),
+                      float((got_grads[0].float() - want_grads[0].float()).abs().max()))
+            magnitudes = [want_grads[0].float().abs().sum((0, 2, 3)),
+                          grad.float().abs().sum((0, 2, 3)), (grad.float() * a.float()).abs().sum()]
+            sums_excess = max(float(((g - w).abs() - 1e-5 * m - 1e-6).max())
+                              for g, w, m in zip(got_grads[1:], want_grads[1:], magnitudes)
+                              if w is not None)
+            layout = all(t.is_contiguous(memory_format=torch.channels_last)
+                         for t in (got, got_grads[0]))
+            del want, want_grads, scaled
+            if (launched != (1, 2) or not layout or max(excess.values()) > 0
+                    or sums_excess > 0):
+                raise AssertionError(f"block epilogue {key}: launches {launched}, channels-last "
+                                     f"{layout}, tolerance excess {excess}, sums {sums_excess}")
+            worst = max(worst, err)
+            # each call's output dropped at once, so that the next call takes its
+            # block from the cache
+            fwd = {"kernel": lambda: _dropped(block_epilogue.epilogue_cuda(conv, bias, act,
+                                                                           *parts)),
+                   "plain": lambda: _dropped(block_epilogue.epilogue_plain(conv, bias, act,
+                                                                           *parts)),
+                   "library": lambda: _dropped(_library_epilogue(conv, bias, act, *parts))}
+            bwd = {"kernel": lambda: _dropped(block_epilogue.epilogue_backward_cuda(
+                       grad, conv, bias, act, gate, last)),
+                   "plain": lambda: _dropped(block_epilogue.epilogue_backward_plain(
+                       grad, conv, bias, act, gate, last)),
+                   "library": lambda: _dropped(_library_epilogue_backward(grad, y, a, act,
+                                                                          gate))}
+            pass_bytes = distinct_bytes(conv)
+            for direction, fns, passes in (("forward", fwd, 3 if last else 2),
+                                           ("backward", bwd, 3)):
+                ms = in_turns(fns, ("kernel", "plain", "library", "library", "plain", "kernel"),
+                              EPILOGUE_REPS)
+                bound_ms = bound(passes * pass_bytes)[0]
+                rows[direction][key] = {
+                    "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+                    "bound_ms": bound_ms, "share_of_bound": bound_ms / ms["kernel"],
+                    "tolerance_excess": excess[direction],
+                    **({"sums_tolerance_excess": sums_excess} if direction == "backward"
+                       else {})}
+            del got, got_grads, residual
+        del conv, grad, y, a
+        torch.cuda.empty_cache()
+    say(f"block epilogue: the kernels against their plain versions (largest |diff| {worst}), "
+        f"{json.dumps(rows)} on {smi}")
+    return {**rows, "max_abs_err": worst}
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``, printing the seconds it took. The phase's models are
     collected after it, and with them their evaluation graphs' memory."""
@@ -4881,6 +5134,7 @@ def main() -> None:
     by_path["mesh capture"] = timed("mesh steps as one program", phase_mesh_capture, smi)
     by_path["eval capture"] = timed("eval as one program", phase_eval_capture, smi)
     route = timed("phase route", phase_route, smi)
+    epilogue = timed("block epilogue", phase_block_epilogue, smi)
 
     def record(kernel, source, replaces, max_abs_err, case, counter=None, paths=None, **more):
         """One entry of the kernels line; ``launches`` sums the main paths'
@@ -4961,6 +5215,11 @@ def main() -> None:
         null_record("backward", "dma"), null_record("backward", "staged"),
         record("phase_shuffle", PHASE_SOURCE, REPLACES_PHASE, route["max_abs_err"],
                route["case"], layers=route["layers"]),
+        *(record(f"block_epilogue{suffix}", EPILOGUE_SOURCE, REPLACES_EPILOGUE,
+                 epilogue["max_abs_err"],
+                 {"shape": EPILOGUE_RECORD_CASE, **epilogue[direction][EPILOGUE_RECORD_CASE]},
+                 cases=epilogue[direction])
+          for suffix, direction in (("", "forward"), ("_backward", "backward"))),
     ]
     for entry in kernels:
         if entry["launches"] < 1:

@@ -13,10 +13,13 @@ captured over NCCL at a world of one against their eager bodies; the
 evaluator's batch captured against its eager loop bit for bit (a second
 ``evaluate_llh``, ``params=`` after train steps); model05 with ``head_pad``
 through the kernels' direct path against the plain version; the
-polyphase transposed conv against ``F.conv_transpose2d``; and the phase
+polyphase transposed conv against ``F.conv_transpose2d``; the phase
 route's epilogue kernel against its plain version, the route against
 ``F.conv_transpose2d``, model05's captured evaluation through it and its
-train steps off it.
+train steps off it; and the residual block's epilogue kernels against their
+plain versions at the ladders' shapes, bit for bit run to run, a routed
+block against its plain body and their launches in a captured
+biladder_celeba step.
 Needs a CUDA card and nvcc; skipped elsewhere. On a machine without
 jax, run it as
 
@@ -1592,3 +1595,186 @@ def test_model05_train_steps_leave_the_phase_route(cuda):
     torch.cuda.synchronize()
     assert state.step == 4 and bool(torch.isfinite(metrics["loss"]))
     assert phase_shuffle.launches == 0
+
+
+# -- the residual block's epilogue route ----------------------------------------------
+
+# (N, C, H, W, dtype): biladder_celeba's blocks in its bf16 train step (obs_up's two
+# at 640 x 64 x 64 x 64, enc_0's at 128 x 64 x 64 x 64, the upsamplers' at 640 and
+# 32 x 32 or 16 x 16, the encoder's smallest) and ladder_svhn's float32 widths
+_EPILOGUE_SHAPES = [(640, 64, 64, 64, torch.bfloat16), (128, 64, 64, 64, torch.bfloat16),
+                    (640, 64, 16, 16, torch.bfloat16), (128, 64, 8, 8, torch.bfloat16),
+                    (640, 48, 32, 32, torch.float32), (640, 8, 8, 8, torch.float32),
+                    (5, 24, 3, 7, torch.bfloat16)]
+_EPILOGUE_MODES = ["inner", "gate", "shortcut_gate"]
+
+
+def _epilogue_operands(device, n, c, h, w, dtype, mode, seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def act_map():
+        return torch.randn(n, h, w, c, device=device, generator=gen).mul(2).to(dtype).permute(
+            0, 3, 1, 2)
+
+    conv, grad = act_map(), act_map()
+    bias = torch.randn(c, device=device, generator=gen) * 0.1
+    residual = act_map() if mode != "inner" else None
+    s_bias = torch.randn(c, device=device, generator=gen) * 0.1 if "shortcut" in mode else None
+    gate = torch.tensor(0.3, device=device) if "gate" in mode else None
+    return conv, grad, bias, residual, s_bias, gate
+
+
+def _within_one_rounding(got, want, scale=None):
+    """Per element within one ulp of ``got``'s dtype (at most 2^-7 of |want|
+    at bf16, 2^-22 at float32) plus 1e-6, and 1e-6 of ``scale`` where given:
+    for ``c``'s gradient |grad g|, since near act''s zero its two terms
+    cancel and a few float32 ulps of theirs (PyTorch's gelu_backward
+    contracts mul+add, the kernel does not) are all of the difference."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -22
+    bound = 1e-6 + ulp * want.float().abs()
+    if scale is not None:
+        bound = bound + 1e-6 * scale
+    excess = (got.float() - want.float()).abs() - bound
+    return float(excess.max()) <= 0
+
+
+@pytest.mark.parametrize("mode", _EPILOGUE_MODES)
+@pytest.mark.parametrize("n,c,h,w,dtype", _EPILOGUE_SHAPES)
+def test_block_epilogue_kernels_match_their_plain_versions(cuda, n, c, h, w, dtype, mode):
+    """The forward and backward kernels against their plain versions on the
+    card, at the ladders' shapes: values and ``c``'s gradient within one
+    rounding of the output dtype (``_within_one_rounding``: the same float32
+    formulas; PyTorch's gelu kernels contract mul+add, these do not), the bias, shortcut-bias and
+    gate sums within 1e-5 of the sum of their terms' magnitudes (float32
+    terms added in another order); outputs channels-last; one forward and
+    two backward launches a call."""
+    from vae_mdl_tpu_torch.ops.cuda import block_epilogue as be
+
+    conv, grad, bias, residual, s_bias, gate = _epilogue_operands(cuda, n, c, h, w, dtype, mode)
+    act = "gelu_tanh" if mode != "gate" else "gelu"
+    before = be.launches, be.backward_launches
+    got = be.epilogue_cuda(conv, bias, act, residual, s_bias, gate)
+    got_grads = be.epilogue_backward_cuda(grad, conv, bias, act, gate, residual is not None)
+    torch.cuda.synchronize()
+    assert (be.launches - before[0], be.backward_launches - before[1]) == (1, 2)
+    want = be.epilogue_plain(conv, bias, act, residual, s_bias, gate)
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+    assert _within_one_rounding(got, want)
+    want_grads = be.epilogue_backward_plain(grad, conv, bias, act, gate, residual is not None)
+    assert got_grads[0].is_contiguous(memory_format=torch.channels_last)
+    scaled = grad.float().abs() * (1.0 if gate is None else abs(float(gate)))
+    assert _within_one_rounding(got_grads[0], want_grads[0], scaled)
+    a = be._act(conv.float() + bias[:, None, None], act)
+    magnitudes = [want_grads[0].float().abs().sum((0, 2, 3)),
+                  grad.float().abs().sum((0, 2, 3)), (grad.float() * a).abs().sum()]
+    for got_sum, want_sum, scale in zip(got_grads[1:], want_grads[1:], magnitudes):
+        if want_sum is None:
+            assert got_sum is None
+            continue
+        assert got_sum.shape == want_sum.shape and got_sum.dtype == torch.float32
+        assert bool(((got_sum - want_sum).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("mode", _EPILOGUE_MODES)
+def test_block_epilogue_kernels_give_the_same_bits_twice(cuda, mode):
+    """Two runs of each kernel on the same operands give the same bits,
+    the sums included: no atomics, a grid fixed by the card."""
+    from vae_mdl_tpu_torch.ops.cuda import block_epilogue as be
+
+    conv, grad, bias, residual, s_bias, gate = _epilogue_operands(cuda, 640, 64, 32, 32,
+                                                                  torch.bfloat16, mode)
+    runs = [(be.epilogue_cuda(conv, bias, "gelu_tanh", residual, s_bias, gate),
+             be.epilogue_backward_cuda(grad, conv, bias, "gelu_tanh", gate,
+                                       residual is not None)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_block_epilogue_kernels_refuse_what_they_do_not_take(cuda):
+    from vae_mdl_tpu_torch.ops.cuda import block_epilogue as be
+
+    conv = torch.zeros(2, 8, 3, 3, device=cuda).contiguous(memory_format=torch.channels_last)
+    bias = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        be.epilogue_cuda(conv.contiguous(), bias, "gelu_tanh")
+    with pytest.raises(TypeError):
+        be.epilogue_cuda(conv.half(), bias, "gelu_tanh")
+    with pytest.raises(ValueError, match="16-byte"):
+        be.epilogue_cuda(torch.zeros(2, 12, 3, 3, device=cuda, dtype=torch.bfloat16)
+                         .contiguous(memory_format=torch.channels_last), bias[:1].expand(12)
+                         .contiguous(), "gelu_tanh")
+    with pytest.raises(TypeError):
+        be.epilogue_cuda(conv, bias.bfloat16(), "gelu_tanh")
+    with pytest.raises(ValueError):
+        be.epilogue_cuda(conv, bias, "gelu_tanh", conv.contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shortcut", [False, True])
+def test_a_routed_block_on_the_card_equals_its_plain_body(cuda, deterministic, shortcut, dtype):
+    """A ``ResidualBlock`` on the card takes the route (4 forward launches, 8
+    backward) and equals its plain body (the route off) within the CPU
+    test's tolerances (``tests/test_torch_block_epilogue.py``): values and
+    the gradients of the input and every parameter."""
+    from vae_mdl_tpu_torch.nn import blocks
+    from vae_mdl_tpu_torch.ops.cuda import block_epilogue as be
+
+    block = blocks.ResidualBlock(32 if shortcut else 64, 64, 64, rezero=True, dtype=dtype,
+                                 activation="gelu_tanh",
+                                 generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        block.gate.fill_(0.6)
+        for name, p in block.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1)
+    x = torch.randn(64, 16, 16, block.Conv_0.weight.shape[1], device=cuda).to(dtype)
+    x = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    leaves = [x] + list(block.parameters())
+    cotangent = torch.randn(64, 16, 16, 64, device=cuda).to(dtype).permute(0, 3, 1, 2)
+    before = be.launches, be.backward_launches
+    got = block.forward_nchw(x)
+    got_grads = torch.autograd.grad(got, leaves, cotangent)
+    assert (be.launches - before[0], be.backward_launches - before[1]) == (4, 8)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(blocks, "EPILOGUE_DTYPES", ())
+        want = block.forward_nchw(x)
+        want_grads = torch.autograd.grad(want, leaves, cotangent)
+    assert be.launches - before[0] == 4
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2e-2)
+    torch.testing.assert_close(got, want, **tol)
+    for a, b in zip(got_grads, want_grads):
+        scale = float(b.abs().max()) + 1e-6
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale)
+        else:
+            assert float((a.float() - b.float()).abs().max()) <= 0.05 * scale
+
+
+def test_captured_biladder_celeba_step_launches_the_epilogues(cuda):
+    """biladder_celeba's captured train step launches the epilogue kernels
+    of its 13 residual blocks at each replay (4 forwards a block, 4
+    backwards of two launches each); model05's, which has no residual
+    block, launches none."""
+    from vae_mdl_tpu_torch.ops.cuda import block_epilogue as be
+    from vae_mdl_tpu_torch.train.state import create_train_state, make_optimizer
+    from vae_mdl_tpu_torch.train.steps import make_train_step
+
+    for name, blocks_in_model in (("biladder_celeba", 13), ("model05", 0)):
+        cfg = experiment(name)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=8))
+        model = build_model(cfg.model, torch.Generator().manual_seed(0))
+        state = create_train_state(model, cfg.train)
+        step = make_train_step(model, cfg, make_optimizer(cfg.train))
+        shape = (8,) + tuple(cfg.model.image_shape)
+        batch = torch.as_tensor(np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8),
+                                device=cuda)
+        state, _ = step(state, batch)  # warm-up and capture
+        before = be.launches, be.backward_launches
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(metrics["loss"]))
+        assert be.launches - before[0] == 2 * 4 * blocks_in_model
+        assert be.backward_launches - before[1] == 2 * 8 * blocks_in_model

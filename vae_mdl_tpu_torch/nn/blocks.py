@@ -19,6 +19,12 @@ with any leading sample axes: they fold those into one batch
 ``[N, C, H, W]`` view, which is channels-last memory, as the port's other
 convs do; so the float32 head that follows hands the likelihood a dense
 channel-minor ``[..., H, W, C]`` tensor on a card.
+
+The epilogue route: on the card, a residual block runs its convs through
+cuDNN without their biases and everything between them (bias, activation,
+rezero gate, residual sum; and their gradients) as hand-written kernels
+(``ops/cuda/block_epilogue.py``), where the plain path makes each of those
+a pass over memory of its own; ``takes_epilogue_route`` decides per call.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vae_mdl_tpu_torch.distributions.continuous import Normal, softplus
+from vae_mdl_tpu_torch.ops.cuda import block_epilogue
 
 # config dtype names -> torch dtypes
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -135,6 +142,14 @@ class SameConv(nn.Module):
         return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
                         padding=self.weight.shape[-1] // 2)
 
+    def raw(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The conv at ``dtype`` without its bias."""
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), padding=self.weight.shape[-1] // 2)
+
+    def hooked(self) -> bool:
+        """Whether a forward hook or pre-hook is registered on the layer."""
+        return bool(self._forward_hooks or self._forward_pre_hooks)
+
 
 class GLU(nn.Module):
     """Gated linear unit conv block, NCHW in and out: conv 3x3 + activation,
@@ -185,6 +200,29 @@ def spatial_normal(out: torch.Tensor) -> Normal:
     return Normal(mu, softplus(logstd), event_axes=SPATIAL_AXES)
 
 
+# the compute dtypes at which a residual block takes the epilogue route
+EPILOGUE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def takes_epilogue_route(device_type: str, dtype: torch.dtype, residual_dtype: torch.dtype,
+                         dense: bool, activation: str, widths, hooked: bool) -> bool:
+    """Whether a ``ResidualBlock`` call runs its epilogues as
+    ``block_epilogue``'s kernels: on the card (``device_type``), at a
+    compute ``dtype`` of ``EPILOGUE_DTYPES``, with the residual input after
+    any shortcut (``residual_dtype``) at that dtype, an input ``dense``
+    (``block_epilogue.fits``: dense channels-last, on a 16-byte boundary),
+    an activation the kernels have, every conv's output ``widths`` whole
+    16-byte vectors, no conv of the block ``hooked`` (tensor parallelism
+    hooks a sharded conv to gather its output), and in a call that
+    ``torch.export`` or ``torch.compile`` does not trace
+    (``torch.compiler.is_compiling()``: a traced program keeps ``aten``
+    operations only)."""
+    return (device_type == "cuda" and dtype in EPILOGUE_DTYPES and residual_dtype == dtype
+            and dense and activation in block_epilogue.ACTIVATIONS
+            and all(block_epilogue.takes_width(w, dtype) for w in widths) and not hooked
+            and not torch.compiler.is_compiling())
+
+
 class ResidualBlock(nn.Module):
     """VDVAE-style bottleneck: 1x1 -> 3x3 -> 3x3 -> 1x1 convs (``Conv_0`` ..
     ``Conv_3``), each followed by the activation; under ``rezero`` the branch
@@ -195,6 +233,7 @@ class ResidualBlock(nn.Module):
                  dtype: torch.dtype = torch.float32, activation: str = "gelu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.activation = activation
         self.act = _activation(activation)
         self.dtype = dtype
         self.Conv_0 = SameConv(in_width, hidden_width, generator, kernel=1)
@@ -206,6 +245,8 @@ class ResidualBlock(nn.Module):
                          if in_width != out_width else None)
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        if self._routed(x):
+            return self._forward_epilogues(x)
         h = x
         for conv in (self.Conv_0, self.Conv_1, self.Conv_2, self.Conv_3):
             h = self.act(conv(h, self.dtype))
@@ -214,6 +255,42 @@ class ResidualBlock(nn.Module):
         if self.shortcut is not None:
             x = self.shortcut(x, self.dtype)
         return x + h
+
+    def _routed(self, x: torch.Tensor) -> bool:
+        """``takes_epilogue_route`` for this block on ``x``; ``x``'s address
+        is read only on the card outside tracing (a traced tensor has none)."""
+        convs = (self.Conv_0, self.Conv_1, self.Conv_2, self.Conv_3)
+        dense = (x.device.type == "cuda" and not torch.compiler.is_compiling()
+                 and block_epilogue.fits(x))
+        return takes_epilogue_route(
+            x.device.type, self.dtype, x.dtype if self.shortcut is None else self.dtype, dense,
+            self.activation, [c.weight.shape[0] for c in convs],
+            any(c.hooked() for c in convs + ((self.shortcut,) if self.shortcut is not None
+                                             else ())))
+
+    def _forward_epilogues(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward_nchw`` on the epilogue route: cuDNN runs each conv
+        without its bias, and ``block_epilogue`` adds the bias and applies
+        the activation, and after the last conv also the gate and the
+        residual sum (the shortcut's bias with it), each in one pass. The
+        last conv runs before the shortcut and its input is let go first,
+        so that a call outside autograd holds no more activations at once
+        than the plain body does."""
+        dtype = self.dtype
+        h = x
+        for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
+            h = block_epilogue.block_epilogue(conv.raw(h, dtype), conv.bias.float(),
+                                              self.activation)
+        last = self.Conv_3.raw(h, dtype)
+        del h
+        if self.shortcut is None:
+            residual, residual_bias = x, None
+        else:
+            residual = self.shortcut.raw(x, dtype)
+            residual_bias = self.shortcut.bias.float()
+        gate = None if self.gate is None else self.gate.float()
+        return block_epilogue.block_epilogue(last, self.Conv_3.bias.float(), self.activation,
+                                             residual, residual_bias, gate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return on_merged(self.forward_nchw, x)

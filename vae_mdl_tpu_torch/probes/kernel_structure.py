@@ -32,7 +32,14 @@ from typing import Callable, Dict
 
 import torch
 
-from vae_mdl_tpu_torch.ops.cuda import dl_kernel, mdl_kernel, mdl_null, phase_shuffle, sfu_probe
+from vae_mdl_tpu_torch.ops.cuda import (
+    block_epilogue,
+    dl_kernel,
+    mdl_kernel,
+    mdl_null,
+    phase_shuffle,
+    sfu_probe,
+)
 from vae_mdl_tpu_torch.utils.timing import LIKELIHOOD_CLASSES, timed_train_step
 
 STEPS = ("full", "dma", "staged", "dl_head")
@@ -58,7 +65,9 @@ def launch_counts() -> Dict[str, int]:
             "mdl_null_backward": mdl_null.backward_launches,
             "dl_log_prob": dl_kernel.launches,
             "dl_log_prob_backward": dl_kernel.backward_launches,
-            "phase_shuffle": phase_shuffle.launches}
+            "phase_shuffle": phase_shuffle.launches,
+            "block_epilogue": block_epilogue.launches,
+            "block_epilogue_backward": block_epilogue.backward_launches}
 
 
 def reset_counts() -> None:
@@ -69,6 +78,7 @@ def reset_counts() -> None:
     for kernels in (mdl_kernel, mdl_null, dl_kernel):
         kernels.launches_by_path.update(dict.fromkeys(kernels.PATHS, 0))
     sfu_probe.launches = phase_shuffle.launches = 0
+    block_epilogue.launches = block_epilogue.backward_launches = 0
 
 
 def counts_by_path() -> Dict[str, int]:

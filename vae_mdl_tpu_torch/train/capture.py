@@ -101,7 +101,8 @@ from vae_mdl_tpu_torch.train.state import (
 from vae_mdl_tpu_torch.utils.tracing import span, timed
 
 Metrics = Dict[str, object]
-_KERNEL_MODULES = ("mdl_kernel", "dl_kernel", "mdl_null", "io_probe", "sfu_probe", "phase_shuffle")
+_KERNEL_MODULES = ("mdl_kernel", "dl_kernel", "mdl_null", "io_probe", "sfu_probe", "phase_shuffle",
+                   "block_epilogue")
 
 
 def pack_metrics(metrics: Dict[str, object]) -> Tuple[torch.Tensor, Callable]:
